@@ -1,0 +1,121 @@
+"""Utility functions: devices, simple gradient descent, LHS sampling,
+padding (port of :mod:`multigrad_tpu.utils.util`)."""
+from __future__ import annotations
+
+from typing import NamedTuple, Union
+
+import numpy as np
+import torch
+from scipy.stats import qmc
+
+try:
+    from tqdm import auto as tqdm
+except ImportError:  # pragma: no cover
+    tqdm = None
+
+__all__ = ["resolve_device", "simple_grad_descent", "GradDescentResult",
+           "latin_hypercube_sampler", "pad_to_multiple", "trange"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port runs on the card: ``None`` means ``"cuda"``.
+
+    Raises where CUDA is asked for and absent, rather than computing on
+    the CPU; pass ``device="cpu"`` to run there.
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the CPU")
+    return device
+
+
+def trange(n, desc=None, progress=True):
+    """``tqdm.trange`` when progress is wanted and tqdm is installed."""
+    if progress and tqdm is not None:
+        return tqdm.trange(n, desc=desc, leave=True)
+    return range(n)
+
+
+class GradDescentResult(NamedTuple):
+    """Parity: ``util.py:50-53`` of the reference."""
+    loss: torch.Tensor
+    params: torch.Tensor
+    aux: Union[torch.Tensor, list]
+
+
+def latin_hypercube_sampler(xmin, xmax, n_dim, num_evaluations,
+                            seed=None, optimization=None):
+    """Latin-Hypercube parameter sample, a numpy array (same draw as the
+    JAX package's for the same seed)."""
+    xmin = np.zeros(n_dim) + xmin
+    xmax = np.zeros(n_dim) + xmax
+    sampler = qmc.LatinHypercube(n_dim, seed=seed, optimization=optimization)
+    return qmc.scale(sampler.random(num_evaluations), xmin, xmax)
+
+
+def pad_to_multiple(array, multiple: int, axis: int = 0, pad_value=0.0):
+    """Pad ``axis`` of a tensor up to a multiple of ``multiple`` with
+    ``pad_value``; returns ``(padded, original_length)``."""
+    array = torch.as_tensor(array)
+    n = array.shape[axis]
+    remainder = (-n) % multiple
+    if remainder == 0:
+        return array, n
+    shape = list(array.shape)
+    shape[axis] = remainder
+    fill = torch.full(shape, pad_value, dtype=array.dtype,
+                      device=array.device)
+    return torch.cat([array, fill], dim=axis), n
+
+
+def _value_and_grad(loss_func, has_aux):
+    def fn(params):
+        p = params.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = loss_func(p)
+            loss = out[0] if has_aux else out
+            (grad,) = torch.autograd.grad(loss, p)
+        if has_aux:
+            return (loss.detach(), out[1]), grad
+        return loss.detach(), grad
+    return fn
+
+
+def simple_grad_descent(loss_func, guess, nsteps, learning_rate,
+                        loss_and_grad_func=None, grad_loss_func=None,
+                        has_aux=False, progress=True):
+    """Fixed-learning-rate gradient descent, host loop (parity:
+    ``util.py:80-134`` of the reference).
+
+    Gradients come from ``loss_and_grad_func``, else from
+    ``grad_loss_func``, else from autograd of ``loss_func``.  Returns the
+    loss, params and aux trajectories of the ``nsteps`` evaluated points.
+    """
+    if loss_and_grad_func is not None:
+        fn = loss_and_grad_func
+    elif grad_loss_func is not None:
+        def fn(params):
+            return loss_func(params), grad_loss_func(params)
+    else:
+        fn = _value_and_grad(loss_func, has_aux)
+
+    params = torch.as_tensor(guess)
+    losses, trajectory, aux_trail = [], [], []
+    for _ in trange(nsteps, "Simple Gradient Descent Progress", progress):
+        if has_aux:
+            (loss, aux), grad = fn(params)
+        else:
+            (loss, grad), aux = fn(params), None
+        losses.append(torch.as_tensor(loss))
+        trajectory.append(params)
+        aux_trail.append(aux)
+        params = params - learning_rate * grad
+    if has_aux:
+        try:
+            aux_trail = torch.stack([torch.as_tensor(a) for a in aux_trail])
+        except (TypeError, RuntimeError):
+            pass  # heterogeneous aux stays a list
+    return GradDescentResult(loss=torch.stack(losses),
+                             params=torch.stack(trajectory), aux=aux_trail)
