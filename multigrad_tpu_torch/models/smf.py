@@ -2,8 +2,8 @@
 
 A two-parameter galaxy–halo model (log stellar-to-halo-mass ratio and
 scatter) fit to a 10-bin stellar mass function, distributed over the
-halo axis.  The sumstats are the dense erf-CDF counts of
-:mod:`multigrad_tpu_torch.ops.binned`.
+halo axis.  The sumstats are the erf-CDF counts of
+:mod:`multigrad_tpu_torch.ops.binned`, dense or fused (scalar sigma).
 """
 from __future__ import annotations
 
@@ -14,10 +14,14 @@ import numpy as np
 import torch
 
 from ..core.model import OnePointModel
-from ..ops.binned import binned_density
+from ..ops.binned import AUTO_NOT_PORTED, binned_density, fused_bin_window
 from ..parallel.collectives import scatter_nd
 from ..parallel.mesh import MeshComm
 from ..utils.util import resolve_device
+
+#: Default ``sigma_max`` for the fused window (the largest scatter the
+#: canonical SMF fits reach).
+DEFAULT_SIGMA_MAX = 0.6
 
 # SMF target at truth params (-2.0, 0.2): the reference's golden
 # regression fixture (the JAX package's TARGET_SUMSTATS).
@@ -43,33 +47,49 @@ def load_halo_masses(num_halos=10_000, slope=-2, mmin=10.0 ** 10,
 
 
 def make_smf_data(num_halos=10_000, comm: Optional[MeshComm] = None,
-                  chunk_size: Optional[int] = None, device=None):
+                  chunk_size: Optional[int] = None, bin_mode: str = "dense",
+                  bin_window: Optional[int] = None,
+                  sigma_max: Optional[float] = None, device=None):
     """The SMF fit's aux_data dict, built on ``device`` (``None`` means
     CUDA).  With a ``comm`` the halo masses are padded with ``inf``
     (neutral for the erf counts) to shard evenly, and this process keeps
-    its shard.  ``chunk_size`` bounds the plain (CPU) path's memory."""
+    its shard.  ``chunk_size`` bounds the dense plain (CPU) path's
+    memory.  ``bin_mode="fused"`` takes the windowed counts with
+    ``bin_window`` edges, derived from ``sigma_max`` when only that is
+    given (see :func:`~multigrad_tpu_torch.ops.binned.fused_bin_window`).
+    ``"auto"`` (for ``bin_mode`` or ``chunk_size``) is not ported yet."""
+    if bin_mode == "auto" or chunk_size == "auto":
+        raise NotImplementedError(AUTO_NOT_PORTED)
     device = resolve_device(device)
     log_mh = torch.log10(load_halo_masses(num_halos, device=device))
     if comm is not None:
         log_mh = scatter_nd(log_mh, axis=0, comm=comm, pad_value=np.inf)
-    return dict(
+    edges = torch.linspace(9, 10, 11, dtype=torch.float32, device=device)
+    if bin_mode == "fused" and bin_window is None and sigma_max is not None:
+        bin_window = fused_bin_window(edges, float(sigma_max))
+    out = dict(
         log_halo_masses=log_mh,
-        smf_bin_edges=torch.linspace(9, 10, 11, dtype=torch.float32,
-                                     device=device),
+        smf_bin_edges=edges,
         volume=10.0 * num_halos,  # Mpc^3/h^3
         target_sumstats=torch.as_tensor(TARGET_SUMSTATS, dtype=torch.float32,
                                         device=device),
         chunk_size=chunk_size,
-        bin_mode="dense",
+        bin_mode=bin_mode,
+        bin_window=bin_window,
     )
+    if sigma_max is not None:
+        out["sigma_max"] = float(sigma_max)
+    return out
 
 
 def aux_from_numpy(aux: dict, device=None) -> dict:
-    """The JAX package's ``make_smf_data`` dict, its array leaves turned
-    into numpy arrays, as the port's dict of tensors on ``device``
-    (``None`` means CUDA), so both packages compute on identical inputs.
+    """A JAX package data dict (``make_smf_data``, ``make_galhalo_data``,
+    ``make_galhalo_hist_data``), its array leaves turned into numpy
+    arrays, as the port's dict of tensors on ``device`` (``None`` means
+    CUDA), so both packages compute on identical inputs.
 
-    Arrays keep their dtype; Python values are kept as they are.  The
+    Arrays keep their dtype; ``obs_indices`` stays a tuple of ints (epochs
+    are configuration); other Python values are kept as they are.  The
     JAX-only ``backend`` knob is dropped: in the port the device decides.
     """
     device = resolve_device(device)
@@ -77,7 +97,9 @@ def aux_from_numpy(aux: dict, device=None) -> dict:
     for name, value in aux.items():
         if name == "backend":
             continue
-        if isinstance(value, np.ndarray):
+        if name == "obs_indices":
+            value = tuple(int(i) for i in np.atleast_1d(value))
+        elif isinstance(value, np.ndarray):
             value = torch.tensor(value, device=device)
         out[name] = value
     return out
@@ -97,7 +119,8 @@ class SMFModel(OnePointModel):
                               params.sigma_logsm, self.aux_data["volume"],
                               chunk_size=self.aux_data.get("chunk_size"),
                               bin_mode=self.aux_data.get("bin_mode",
-                                                         "dense"))
+                                                         "dense"),
+                              bin_window=self.aux_data.get("bin_window"))
 
     def calc_loss_from_sumstats(self, sumstats, sumstats_aux=None,
                                 randkey=None):

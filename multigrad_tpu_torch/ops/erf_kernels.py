@@ -1,42 +1,41 @@
 """Dense erf-CDF binned counts: CUDA kernels, their plain versions, autograd.
 
-Counterpart of the dense, scalar-sigma half of
-:mod:`multigrad_tpu.ops.pallas_kernels` (``binned_erf_counts_pallas``).
-The forward computes, for ``inv = 1/(√2 σ)``,
+Counterpart of the dense half of :mod:`multigrad_tpu.ops.pallas_kernels`
+(``binned_erf_counts_pallas``), with a scalar or a per-particle sigma.
+The forward computes, for ``inv_i = 1/(√2 σ_i)``,
 
-    counts_b = Σ_i [Φ((e_{b+1} − v_i)·inv) − Φ((e_b − v_i)·inv)]
+    counts_b = Σ_i [Φ((e_{b+1} − v_i)·inv_i) − Φ((e_b − v_i)·inv_i)]
 
 with the per-particle difference taken before the sum over particles,
 and the backward all three gradients from one shared ``P = exp(−z²)``,
 with ``h_e = g_{e−1} − g_e``:
 
-    dJ/dv_i = −(inv/√π) Σ_e h_e P_{e,i}
-    dJ/de_e =  (inv/√π) h_e Σ_i P_{e,i}
-    dJ/dσ   = −(1/(σ√π)) Σ_{e,i} h_e P_{e,i} z_{e,i}
+    dJ/dv_i = −(inv_i/√π) Σ_e h_e P_{e,i}
+    dJ/de_e =  (1/√π) h_e Σ_i inv_i P_{e,i}
+    dJ/dσ_i = −(1/(σ_i√π)) Σ_e h_e P_{e,i} z_{e,i}
 
-On a CUDA tensor the two hand-written kernels of ``csrc/erf_counts.cu``
-run (built with ``nvcc`` for ``sm_90a`` at first use, loaded with
-ctypes); on a CPU tensor the plain PyTorch versions
+(with a scalar sigma, ``inv`` leaves the sum and dJ/dσ sums over i too).
+
+On a CUDA tensor the hand-written kernels of ``csrc/erf_counts.cu`` run
+(built with ``nvcc`` for ``sm_90a`` at first use, loaded with ctypes,
+see :mod:`.cuda_build`); on a CPU tensor the plain PyTorch versions
 (:func:`erf_counts_fwd_plain`, :func:`erf_counts_bwd_plain`) run.  The
 tensor's device decides; there is no fallback from one to the other.
 
 Each kernel wrapper counts its launches in a plain integer attribute
-(``erf_counts_fwd_cuda.launches``, ``erf_counts_bwd_cuda.launches``), so
-a run can show that its main path went through the kernels.
+(``erf_counts_fwd_cuda.launches`` and ``erf_counts_bwd_cuda.launches``
+for a scalar sigma, ``erf_counts_fwd_vec_cuda.launches`` and
+``erf_counts_bwd_vec_cuda.launches`` for a per-particle one), so a run
+can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
+
+from . import cuda_build
 
 _SQRT2 = 1.4142135623730951
 _INV_SQRT_PI = 0.5641895835477563
@@ -61,17 +60,8 @@ _ERF_BETA = (-1.45660718464996e-05, -2.13374055278905e-04,
              -1.68282697438203e-03, -7.37332916720468e-03,
              -1.42647390514189e-02)
 
-_THREADS = 256          # kThreads in erf_counts.cu
-_BLOCKS_PER_SM = 8      # grid cap: enough resident blocks to fill an SM
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "erf_counts.cu"
-#: Where the shared library is built: ``build/multigrad_tpu_torch/``
-#: beside the package.
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
-    "multigrad_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: The kernels' source under ``csrc/`` (built by :mod:`.cuda_build`).
+SOURCE = "erf_counts.cu"
 
 
 def _erf_f32(x):
@@ -87,46 +77,86 @@ def _erf_f32(x):
     return x * alpha / beta
 
 
+class _Erf(torch.autograd.Function):
+    """:func:`_erf_f32` with the derivative of the exact erf,
+    ``2/√π·exp(−x²)`` (lax.erf's rule), not the polynomial's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _erf_f32(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (2.0 * _INV_SQRT_PI) * torch.exp(-(x * x))
+
+
+def erf(x):
+    """The kernels' float32 erf, differentiable as the exact erf is."""
+    return _Erf.apply(x)
+
+
 # --------------------------------------------------------------------------
 # Plain PyTorch versions
 # --------------------------------------------------------------------------
-def _chunks(values, chunk_size):
+def _chunks(values, sigma, chunk_size):
+    """``(values, sigma)`` pieces of at most ``chunk_size`` particles; a
+    scalar sigma goes whole with every piece."""
     if chunk_size is None or values.shape[0] <= chunk_size:
-        return (values,)
-    return torch.split(values, int(chunk_size))
+        return ((values, sigma),)
+    pieces = torch.split(values, int(chunk_size))
+    if sigma.dim():
+        return zip(pieces, torch.split(sigma, int(chunk_size)))
+    return ((v, sigma) for v in pieces)
 
 
 def _inv(sigma):
     return 1.0 / (_SQRT2 * sigma)
 
 
+def _as_sigma(sigma, values):
+    return torch.as_tensor(sigma, dtype=torch.float32, device=values.device)
+
+
 def erf_counts_fwd_plain(values, edges, sigma, chunk_size=None):
-    """Forward counts ``(E-1,)``, one ``(E, chunk)`` cdf block at a time.
+    """Forward counts ``(E-1,)``, one ``(E, chunk)`` cdf block at a time,
+    for a scalar or a per-particle ``(N,)`` sigma.
 
     ``chunk_size`` bounds the working memory at ``E·chunk_size`` floats.
     """
-    inv = _inv(sigma)
+    sigma = _as_sigma(sigma, values)
     counts = torch.zeros(edges.shape[0] - 1, dtype=torch.float32,
                          device=values.device)
-    for v in _chunks(values, chunk_size):
+    for v, s in _chunks(values, sigma, chunk_size):
         v = torch.clamp(v, -PAD_VALUE, PAD_VALUE)
-        cdf = 0.5 * (1.0 + _erf_f32((edges[:, None] - v[None, :]) * inv))
+        cdf = 0.5 * (1.0 + _erf_f32((edges[:, None] - v[None, :]) * _inv(s)))
         counts = counts + torch.diff(cdf, dim=0).sum(dim=1)
     return counts
 
 
 def erf_counts_bwd_plain(values, edges, sigma, g, chunk_size=None):
-    """``(dvalues, dedges, dsigma)`` for the cotangent ``g`` of the counts."""
-    inv = _inv(sigma)
+    """``(dvalues, dedges, dsigma)`` for the cotangent ``g`` of the counts;
+    ``dsigma`` has sigma's shape (a scalar, or ``(N,)`` per particle)."""
+    sigma = _as_sigma(sigma, values)
+    vec = sigma.dim() > 0
     h = _h_from_g(g)
-    dv_raw, rows, pz = [], 0.0, 0.0
-    for v in _chunks(values, chunk_size):
+    dv_raw, hz, rows, pz = [], [], 0.0, 0.0
+    for v, s in _chunks(values, sigma, chunk_size):
         v = torch.clamp(v, -PAD_VALUE, PAD_VALUE)
+        inv = _inv(s)
         z = (edges[:, None] - v[None, :]) * inv
         p = torch.exp(-(z * z))
         dv_raw.append((h[:, None] * p).sum(dim=0))
-        rows = rows + p.sum(dim=1)
-        pz = pz + (p * z).sum(dim=1)
+        if vec:
+            rows = rows + (inv * p).sum(dim=1)
+            hz.append((h[:, None] * (p * z)).sum(dim=0))
+        else:
+            rows = rows + p.sum(dim=1)
+            pz = pz + (p * z).sum(dim=1)
+    if vec:
+        return _scale_vec_grads(torch.cat(dv_raw), rows, torch.cat(hz), h,
+                                sigma)
     return _scale_grads(torch.cat(dv_raw), rows, (h * pz).sum(), h, sigma)
 
 
@@ -146,71 +176,31 @@ def _scale_grads(dv_raw, rows, hpz, h, sigma):
     return dvalues, dedges, dsigma
 
 
+def _scale_vec_grads(dv_raw, rows, hz, h, sigma):
+    """The per-particle-sigma factors, as the CUDA kernel applies them:
+    ``dv_i = -(inv_i/√π) Σ_e h_e P``, ``dσ_i = -(inv_i √2/√π) Σ_e h_e P z``
+    (``= -(1/(σ_i √π)) Σ_e h_e P z``); ``rows`` already carry ``inv_i``."""
+    inv = _inv(sigma)
+    return (-(inv * _INV_SQRT_PI) * dv_raw, _INV_SQRT_PI * h * rows,
+            -(inv * (_SQRT2 * _INV_SQRT_PI)) * hz)
+
+
 # --------------------------------------------------------------------------
-# CUDA kernels: build, load, wrappers
+# CUDA kernels: wrappers
 # --------------------------------------------------------------------------
-_LIB = None
-_LIB_LOCK = threading.Lock()
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
-        / "nvcc"
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the erf_counts kernels are built "
-                       "from csrc/erf_counts.cu at first use")
-
-
-def build():
-    """Compile ``csrc/erf_counts.cu`` unless a library built from the same
-    source exists; return its path.  The file name carries the source's
-    hash, so an edited source is rebuilt."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"liberf_counts_{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, lib)
-    except subprocess.CalledProcessError as err:
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{err.stderr}") \
-            from err
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "erf_counts_fwd": [_P, _I64, _P, _I32, _P, _I32, _P, _I32, _P, _P],
+    "erf_counts_bwd": [_P, _I64, _P, _I32, _P, _I32, _P, _P, _P, _P, _I32,
+                       _P, _P],
+}
 
 
 def _lib():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.erf_counts_fwd.argtypes = [p, i64, p, i32, p, p, i32, p, p]
-            lib.erf_counts_fwd.restype = i32
-            lib.erf_counts_bwd.argtypes = [p, i64, p, i32, p, p, p, p, i32,
-                                           p, p]
-            lib.erf_counts_bwd.restype = i32
-            _LIB = lib
-    return _LIB
+    return cuda_build.load(SOURCE, _SIGNATURES)
 
 
-def _grid(n, device):
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // _THREADS), sms * _BLOCKS_PER_SM))
-
-
-def _check_cuda_args(values, edges, sigma):
+def _check_cuda_args(values, edges, sigma, vec):
     for name, t in (("values", values), ("bin_edges", edges),
                     ("sigma", sigma)):
         if t.device != values.device or t.dtype != torch.float32:
@@ -218,66 +208,97 @@ def _check_cuda_args(values, edges, sigma):
                              f"got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if sigma.numel() != 1:
-        raise ValueError("the CUDA kernels take a scalar sigma")
+    if vec and sigma.shape != values.shape:
+        raise ValueError(f"a per-particle sigma must have values' shape "
+                         f"{tuple(values.shape)}, got {tuple(sigma.shape)}")
+    if not vec and sigma.numel() != 1:
+        raise ValueError("a scalar sigma must be a one-element tensor")
     if not 2 <= edges.shape[0] <= MAX_EDGES:
         raise ValueError(f"between 2 and {MAX_EDGES} bin edges supported")
 
 
-def _raise_on(code, name):
-    if code != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
-
-
-def erf_counts_fwd_cuda(values, edges, sigma):
-    """Forward counts ``(E-1,)`` by the CUDA kernel (float32, contiguous,
-    one device; ``sigma`` a one-element tensor)."""
-    _check_cuda_args(values, edges, sigma)
+def _launch_fwd(values, edges, sigma, vec):
+    _check_cuda_args(values, edges, sigma, vec)
     lib = _lib()
     n, n_edges = values.shape[0], edges.shape[0]
     with torch.cuda.device(values.device):
-        grid = _grid(n, values.device)
+        grid = cuda_build.grid(n, values.device)
         partials = torch.empty((grid, n_edges - 1), dtype=torch.float32,
                                device=values.device)
         counts = torch.empty(n_edges - 1, dtype=torch.float32,
                              device=values.device)
         stream = torch.cuda.current_stream(values.device).cuda_stream
         code = lib.erf_counts_fwd(values.data_ptr(), n, edges.data_ptr(),
-                                  n_edges, sigma.data_ptr(),
+                                  n_edges, sigma.data_ptr(), int(vec),
                                   partials.data_ptr(), grid,
                                   counts.data_ptr(), stream)
-    _raise_on(code, "erf_counts_fwd")
+    cuda_build.raise_on(code, "erf_counts_fwd")
+    return counts
+
+
+def _launch_bwd(values, edges, sigma, h, vec):
+    _check_cuda_args(values, edges, sigma, vec)
+    lib = _lib()
+    n, n_edges = values.shape[0], edges.shape[0]
+    cols = n_edges if vec else n_edges + 1
+    with torch.cuda.device(values.device):
+        grid = cuda_build.grid(n, values.device)
+        dv = torch.empty_like(values)
+        ds = torch.empty_like(values) if vec else None
+        partials = torch.empty((grid, cols), dtype=torch.float32,
+                               device=values.device)
+        sums = torch.empty(cols, dtype=torch.float32, device=values.device)
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        code = lib.erf_counts_bwd(values.data_ptr(), n, edges.data_ptr(),
+                                  n_edges, sigma.data_ptr(), int(vec),
+                                  h.data_ptr(), dv.data_ptr(),
+                                  None if ds is None else ds.data_ptr(),
+                                  partials.data_ptr(), grid,
+                                  sums.data_ptr(), stream)
+    cuda_build.raise_on(code, "erf_counts_bwd")
+    return dv, ds, sums
+
+
+def erf_counts_fwd_cuda(values, edges, sigma):
+    """Forward counts ``(E-1,)`` by the CUDA kernel, scalar sigma (float32,
+    contiguous, one device; ``sigma`` a one-element tensor)."""
+    counts = _launch_fwd(values, edges, sigma, vec=False)
     erf_counts_fwd_cuda.launches += 1
     return counts
 
 
+def erf_counts_fwd_vec_cuda(values, edges, sigma):
+    """Forward counts ``(E-1,)`` by the CUDA kernel, per-particle sigma
+    (``sigma`` of values' shape)."""
+    counts = _launch_fwd(values, edges, sigma, vec=True)
+    erf_counts_fwd_vec_cuda.launches += 1
+    return counts
+
+
 def erf_counts_bwd_cuda(values, edges, sigma, g):
-    """``(dvalues, dedges, dsigma)`` by the CUDA kernel, for the cotangent
-    ``g`` ``(E-1,)`` of the counts."""
-    _check_cuda_args(values, edges, sigma)
-    lib = _lib()
-    n, n_edges = values.shape[0], edges.shape[0]
+    """``(dvalues, dedges, dsigma)`` by the CUDA kernel, scalar sigma, for
+    the cotangent ``g`` ``(E-1,)`` of the counts."""
     h = _h_from_g(g.to(torch.float32)).contiguous()
-    with torch.cuda.device(values.device):
-        grid = _grid(n, values.device)
-        dv_raw = torch.empty_like(values)
-        partials = torch.empty((grid, n_edges + 1), dtype=torch.float32,
-                               device=values.device)
-        sums = torch.empty(n_edges + 1, dtype=torch.float32,
-                           device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        code = lib.erf_counts_bwd(values.data_ptr(), n, edges.data_ptr(),
-                                  n_edges, sigma.data_ptr(), h.data_ptr(),
-                                  dv_raw.data_ptr(), partials.data_ptr(),
-                                  grid, sums.data_ptr(), stream)
-    _raise_on(code, "erf_counts_bwd")
+    dv_raw, _, sums = _launch_bwd(values, edges, sigma, h, vec=False)
     erf_counts_bwd_cuda.launches += 1
+    n_edges = edges.shape[0]
     return _scale_grads(dv_raw, sums[:n_edges], sums[n_edges], h,
                         sigma.reshape(()))
 
 
+def erf_counts_bwd_vec_cuda(values, edges, sigma, g):
+    """``(dvalues, dedges, dsigma)`` by the CUDA kernel, per-particle
+    sigma; ``dvalues`` and ``dsigma`` come scaled from the kernel."""
+    h = _h_from_g(g.to(torch.float32)).contiguous()
+    dv, ds, rows = _launch_bwd(values, edges, sigma, h, vec=True)
+    erf_counts_bwd_vec_cuda.launches += 1
+    return dv, _INV_SQRT_PI * h * rows, ds
+
+
 erf_counts_fwd_cuda.launches = 0
+erf_counts_fwd_vec_cuda.launches = 0
 erf_counts_bwd_cuda.launches = 0
+erf_counts_bwd_vec_cuda.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -287,6 +308,8 @@ def erf_counts_fwd(values, edges, sigma, chunk_size=None):
     """Forward counts: the kernel on CUDA tensors, the plain version on
     CPU tensors (``chunk_size`` bounds the plain version's memory)."""
     if values.is_cuda:
+        if sigma.dim():
+            return erf_counts_fwd_vec_cuda(values, edges, sigma)
         return erf_counts_fwd_cuda(values, edges, sigma.reshape(1))
     return erf_counts_fwd_plain(values, edges, sigma, chunk_size)
 
@@ -295,6 +318,8 @@ def erf_counts_bwd(values, edges, sigma, g, chunk_size=None):
     """``(dvalues, dedges, dsigma)``: the kernel on CUDA tensors, the
     plain version on CPU tensors."""
     if values.is_cuda:
+        if sigma.dim():
+            return erf_counts_bwd_vec_cuda(values, edges, sigma, g)
         return erf_counts_bwd_cuda(values, edges, sigma.reshape(1), g)
     return erf_counts_bwd_plain(values, edges, sigma, g, chunk_size)
 
@@ -319,6 +344,17 @@ class ErfCounts(torch.autograd.Function):
                 ds.reshape(sigma.shape) if need[2] else None, None)
 
 
+def check_sigma_shape(values, sigma):
+    """Raise unless ``sigma`` is a scalar or has ``values``' shape."""
+    vshape = tuple(torch.as_tensor(values).shape)
+    sshape = tuple(torch.as_tensor(sigma).shape)
+    if len(sshape) > 1 or (len(sshape) == 1 and sshape != vshape):
+        raise ValueError(
+            f"sigma must be a scalar or match values' shape {vshape}, "
+            f"got {sshape}")
+    return len(sshape) == 1
+
+
 def erf_counts(values, bin_edges, sigma, chunk_size=None):
     """Differentiable smoothed histogram — the port's
     ``binned_erf_counts_pallas``.
@@ -327,29 +363,21 @@ def erf_counts(values, bin_edges, sigma, chunk_size=None):
     ----------
     values : (N,) tensor
     bin_edges : (B+1,) tensor, ``2 <= B+1 <= 128``
-    sigma : float or 0-d tensor
-        Gaussian smoothing width.  A per-particle ``(N,)`` sigma passes
-        the shape check but is not ported yet (ROADMAP Queue 2 item 1).
+    sigma : float, 0-d tensor or (N,) tensor
+        Gaussian smoothing width: one for all particles, or one per
+        particle (mass-dependent scatter).
     chunk_size : int, optional
         Bounds the plain (CPU) version's ``(E, chunk)`` working memory;
         the CUDA kernels stream any N and ignore it.
     """
     values = torch.as_tensor(values)
-    vshape = tuple(values.shape)
-    sshape = tuple(torch.as_tensor(sigma).shape)
-    if len(sshape) > 1 or (len(sshape) == 1 and sshape != vshape):
-        raise ValueError(
-            f"sigma must be a scalar or match values' shape {vshape}, "
-            f"got {sshape}")
+    vec = check_sigma_shape(values, sigma)
     if torch.as_tensor(bin_edges).shape[0] > MAX_EDGES:
         raise ValueError(f"at most {MAX_EDGES} bin edges supported")
-    if len(sshape) == 1:
-        raise NotImplementedError(
-            "per-particle sigma is not ported yet (ROADMAP Queue 2 item 1)")
     device = values.device
     values = values.to(torch.float32).contiguous()
     edges = torch.as_tensor(bin_edges, dtype=torch.float32,
                             device=device).contiguous()
-    sigma = torch.as_tensor(sigma, dtype=torch.float32,
-                            device=device).reshape(())
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=device)
+    sigma = sigma.contiguous() if vec else sigma.reshape(())
     return ErfCounts.apply(values, edges, sigma, chunk_size)

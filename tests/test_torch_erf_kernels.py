@@ -6,7 +6,8 @@ and against the Pallas kernel ``binned_erf_counts_pallas`` run in
 interpret mode, on the same numpy inputs.  Tolerances are those of
 ``tests/test_pallas.py``: forward ``rtol=2e-5, atol=1e-5`` (f32 sums
 over particles in another order), gradients ``rtol=1e-3, atol=1e-5``
-(the analytic backward against autodiff through the erf polynomial).
+(the analytic backward against autodiff through the erf polynomial),
+for a scalar and for a per-particle sigma.
 The CUDA kernels themselves are held against the plain versions in
 ``tests/test_torch_cuda.py``, which needs the card.
 """
@@ -28,6 +29,16 @@ from multigrad_tpu_torch.ops.erf_kernels import (ErfCounts,
 
 EDGES = np.linspace(9, 10, 11).astype(np.float32)
 COT = np.arange(10.0, dtype=np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    # The suite's workers share the machine's cores with JAX's own thread
+    # pools: keep PyTorch's intra-op pool small while this module runs.
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _halo_sample(n, seed=0):
@@ -105,15 +116,95 @@ def test_rejects_more_than_128_edges():
 
 
 def test_per_particle_sigma_not_ported():
-    vals = _halo_sample(256)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        binned_erf_counts(_t(vals), _t(EDGES), torch.full((256,), 0.2))
+    # Per-particle sigma is ported now: an (N,) sigma runs (here through
+    # the plain version) and equals the Pallas kernel's vec_sigma path.
+    vals, sig = _halo_sample(256), _vec_sigma(256)
+    want = binned_erf_counts_pallas(jnp.asarray(vals), jnp.asarray(EDGES),
+                                    jnp.asarray(sig), block_size=1024)
+    got = binned_erf_counts(_t(vals), _t(EDGES), _t(sig))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=1e-5)
 
 
 def test_fused_bin_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    # What stays unported is the autotuner's "auto" resolution.
+    for kwargs in (dict(bin_mode="auto"), dict(chunk_size="auto")):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            binned_erf_counts(_t(_halo_sample(16)), _t(EDGES), 0.2,
+                              **kwargs)
+    with pytest.raises(ValueError, match="unknown bin_mode"):
         binned_erf_counts(_t(_halo_sample(16)), _t(EDGES), 0.2,
-                          bin_mode="fused")
+                          bin_mode="sparse")
+
+
+# --------------------------------------------------------------------------
+# Per-particle sigma (the history model's mass-dependent scatter), against
+# tests/test_pallas.py's vec-sigma inputs and tolerances.
+# --------------------------------------------------------------------------
+def _vec_sigma(n, seed=5):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.1, 0.4, size=n).astype(np.float32)
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("n", [1024, 3333])
+def test_vec_sigma_forward_matches_jax(n, ref):
+    vals, sig = _halo_sample(n), _vec_sigma(n)
+    want = _jax_fn(ref)(jnp.asarray(vals), jnp.asarray(EDGES),
+                        jnp.asarray(sig))
+    got = binned_erf_counts(_t(vals), _t(EDGES), _t(sig))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_vec_sigma_gradients_match_jax(ref):
+    vals, sig = _halo_sample(4000), _vec_sigma(4000)
+    fn = _jax_fn(ref)
+    g_ref = jax.grad(lambda v, e, s: jnp.sum(fn(v, e, s) * COT),
+                     argnums=(0, 1, 2))(jnp.asarray(vals), jnp.asarray(EDGES),
+                                        jnp.asarray(sig))
+    v, e = _t(vals).requires_grad_(), _t(EDGES).requires_grad_()
+    s = _t(sig).requires_grad_()
+    (binned_erf_counts(v, e, s) * _t(COT)).sum().backward()
+    for want, got in zip(g_ref, (v.grad, e.grad, s.grad)):
+        assert tuple(got.shape) == np.shape(want)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-3, atol=1e-5)
+
+
+def test_vec_sigma_padding_neutral():
+    # +inf values with any finite pad sigma add nothing forward and get
+    # zero (not NaN) gradients, as in test_pallas.py's padding test.
+    vals = np.concatenate([_halo_sample(1000), np.full(24, np.inf,
+                                                        np.float32)])
+    sig = np.concatenate([_vec_sigma(1000), np.full(24, 0.3, np.float32)])
+    want = jax_counts(jnp.asarray(vals[:1000]), jnp.asarray(EDGES),
+                      jnp.asarray(sig[:1000]), backend="xla")
+    v, s = _t(vals).requires_grad_(), _t(sig).requires_grad_()
+    counts = binned_erf_counts(v, _t(EDGES), s)
+    np.testing.assert_allclose(counts.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=1e-5)
+    counts.sum().backward()
+    assert torch.isfinite(v.grad).all() and torch.isfinite(s.grad).all()
+    np.testing.assert_array_equal(v.grad[1000:].numpy(), 0.0)
+    np.testing.assert_array_equal(s.grad[1000:].numpy(), 0.0)
+
+
+def test_vec_sigma_chunked_plain_matches_unchunked():
+    # Chunking only reorders float32 sums over particles.
+    vals = np.concatenate([_halo_sample(5000), np.full(3, np.inf,
+                                                       np.float32)])
+    v, e, s = _t(vals), _t(EDGES), _t(_vec_sigma(5003))
+    np.testing.assert_allclose(erf_counts_fwd_plain(v, e, s, 777).numpy(),
+                               erf_counts_fwd_plain(v, e, s).numpy(),
+                               rtol=2e-5, atol=1e-5)
+    g = _t(COT)
+    for a, b in zip(erf_counts_bwd_plain(v, e, s, g, 777),
+                    erf_counts_bwd_plain(v, e, s, g)):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_chunked_plain_matches_unchunked():
