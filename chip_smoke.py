@@ -27,14 +27,26 @@ order:
 10. the history path, dense: ``GalhaloHistModel(make_galhalo_hist_data(
     1e8, chunk_size=1e6)).run_adam`` for 20 steps, launches counted;
 11. the history path, fused: the same with 41 edges, six epochs and
-    ``bin_mode="fused"``, launches counted.
+    ``bin_mode="fused"``, launches counted;
+12. the pair-count kernels against their plain versions at N = 100,003
+    (projected with a box, 3D with and without a box, an asymmetric pair
+    of blocks, edges from 0), bit-identical on repeat, timed at 1e5 and
+    1e6 halos;
+13. the wp(rp) model at 8,192 halos: loss at TRUTH, one loss and gradient
+    on the card against the same model on the CPU, 150 Adam steps recover
+    TRUTH; one loss and gradient of the xi(r) model;
+14. the wp(rp) path: ``WprpModel(make_wprp_data(1e5, box_size=250,
+    pimax=20)).run_adam`` for 20 steps, launches counted, and seconds per
+    loss and gradient at 1e6 halos.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 It imports torch, numpy, the port and ``tools/hist_card_vs_cpu.py``
-(phase 9's references) only.
+(phase 9's references) only.  Float32 matrix products run in full float32
+(``torch.backends.cuda.matmul.allow_tf32 = False``): the pair counts'
+plain versions are masked matrix-vector products.
 """
 import json
 import os
@@ -77,6 +89,19 @@ HIST_LR = 1e-3
 FUSED_EDGES = (7.0, 11.75, 41)
 FUSED_OBS = (5, 7, 9, 11, 13, 15)
 FUSED_SIGMA_MAX = 0.32
+# The pair counts (bench.py:416-460 and :295-336): a galaxy mock in a
+# 250 Mpc/h box, pimax 20, 8 r_p bins on logspace(-0.5, 1.2, 9); the xi
+# bins logspace(-0.3, 1.1, 8).  f32 operations per pair, counted from
+# csrc/pair_counts.cu: 22 with a box (differences 3, minimum image 12,
+# squares and sums 3 projected or 5 in 3D, the pi cut 2 when projected,
+# the range test 2); per pair inside the bins' range, 3 per bin (two
+# compares and a predicated add), and 2 more in the backward (dw += G w).
+PAIR_HALOS, PAIR_BIG = 100_000, 1_000_000
+PAIR_RAGGED = 100_003
+PAIR_BOX, PAIR_PIMAX = 250.0, 20.0
+PAIR_OPS, PAIR_OPS_PER_BIN, PAIR_BWD_OPS = 22, 3, 2
+PAIR_PLAIN_ROWS = 512
+WPRP_GUESS = (-1.8, -0.8)
 
 
 def log(msg):
@@ -125,6 +150,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     import numpy as np
+    torch.backends.cuda.matmul.allow_tf32 = False
     import multigrad_tpu_torch
     pkg = os.path.dirname(os.path.abspath(multigrad_tpu_torch.__file__))
     if os.path.dirname(pkg) != HERE:
@@ -134,18 +160,25 @@ def main():
                                             TARGET_SUMSTATS,
                                             make_galhalo_hist_data,
                                             make_smf_data)
+    from multigrad_tpu_torch.models import (WprpModel, XiModel,
+                                            make_galaxy_mock, make_wprp_data,
+                                            make_xi_data, selection_weights)
     from multigrad_tpu_torch.models.galhalo_hist import TRUTH as HIST_TRUTH
+    from multigrad_tpu_torch.models.wprp import TRUTH as WPRP_TRUTH
     from multigrad_tpu_torch.ops import binned as tb
     from multigrad_tpu_torch.ops import cuda_build
     from multigrad_tpu_torch.ops import erf_kernels as ek
     from multigrad_tpu_torch.ops import fused_kernels as fk
+    from multigrad_tpu_torch.ops import pair_kernels as pk
     from tools.hist_card_vs_cpu import evaluate, evaluate_fed, gaps
     wrappers = {"erf_counts_fwd": ek.erf_counts_fwd_cuda,
                 "erf_counts_bwd": ek.erf_counts_bwd_cuda,
                 "erf_counts_fwd_vec": ek.erf_counts_fwd_vec_cuda,
                 "erf_counts_bwd_vec": ek.erf_counts_bwd_vec_cuda,
                 "fused_masses_fwd": fk.fused_masses_fwd_cuda,
-                "fused_masses_bwd": fk.fused_masses_bwd_cuda}
+                "fused_masses_bwd": fk.fused_masses_bwd_cuda,
+                "pair_counts_fwd": pk.pair_counts_fwd_cuda,
+                "pair_counts_bwd": pk.pair_counts_bwd_cuda}
 
     def reset_launches():
         for fn in wrappers.values():
@@ -576,6 +609,198 @@ def main():
     log(f"[{time.perf_counter() - t_start:.0f} s] history path: "
         f"{dense_sps:.4f} steps/s dense, {fused_sps:.4f} steps/s fused")
 
+    # 12. pair-count kernels against their plain versions ---------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 12")
+    wp_edges = torch.logspace(-0.5, 1.2, 9, device=dev)
+    xi_edges = torch.logspace(-0.3, 1.1, 8, device=dev)
+
+    def mock(n, box, seed):
+        pos, logm = make_galaxy_mock(n, box, seed=seed, device=dev)
+        return pos, selection_weights(logm, WPRP_TRUTH).contiguous()
+
+    def pair_case(label, p1, w1, p2, w2, edges, box, pimax):
+        """Kernels against plain: counts rtol 1e-4 per bin (the same masks,
+        float32 sums of up to N1·N2 products in another order), bit-
+        identical on repeat; dw rtol 1e-3, atol 1e-5·max|dw|."""
+        esq = (edges * edges).contiguous()
+        g = torch.linspace(-1.0, 2.0, esq.shape[0] - 1, device=dev)
+        auto = p2 is p1
+        got = pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq, box, pimax)
+        want = pk.pair_counts_fwd_plain(p1, w1, p2, w2, esq, box, pimax,
+                                        PAIR_PLAIN_ROWS)
+        torch.cuda.synchronize()
+        fwd_err = float((got - want).abs().max())
+        check(bool(torch.all((got - want).abs() <= 1e-4 * want.abs())),
+              f"{label}: counts {got.tolist()} != plain {want.tolist()}")
+        check(torch.equal(got, pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq,
+                                                       box, pimax)),
+              f"{label}: pair forward not deterministic")
+        dw1, dw2 = pk.pair_counts_bwd_plain(p1, w1, p2, w2, esq, g, box,
+                                            pimax, PAIR_PLAIN_ROWS, auto)
+        sweeps = [("dw1", pk.pair_counts_bwd_cuda(p1, p2, w2, esq, g, box,
+                                                  pimax), dw1)]
+        if not auto:
+            sweeps.append(("dw2", pk.pair_counts_bwd_cuda(
+                p2, p1, w1, esq, g, box, pimax), dw2))
+        bwd_err = 0.0
+        for name, a, b in sweeps:
+            check(bool(torch.isfinite(a).all()), f"{label}: {name} not "
+                  "finite")
+            scale = float(b.abs().max())
+            excess = float(((a - b).abs() - 1e-3 * b.abs()).max())
+            check(excess <= 1e-5 * scale, f"{label}: {name} off by "
+                  f"{excess} beyond rtol 1e-3, atol {1e-5 * scale}")
+            bwd_err = max(bwd_err, float((a - b).abs().max()))
+        swept = " and ".join(name for name, _, _ in sweeps)
+        log(f"{label}: counts max|err| {fwd_err:.3e} (counts up to "
+            f"{float(want.abs().max()):.6g}), {swept} max|err| "
+            f"{bwd_err:.3e}")
+        return dict(fwd_err=fwd_err, bwd_err=bwd_err, counts=got)
+
+    pos, w = mock(PAIR_RAGGED, PAIR_BOX, 12)
+    wp_case = pair_case(f"pair N={PAIR_RAGGED:,} projected, box",
+                        pos, w, pos, w, wp_edges, PAIR_BOX, PAIR_PIMAX)
+    pos2, w2 = mock(60_001, PAIR_BOX, 13)
+    pair_case("pair 100,003 x 60,001 projected, box", pos, w, pos2, w2,
+              wp_edges, PAIR_BOX, PAIR_PIMAX)
+    del pos, w, pos2, w2
+    pos, w = mock(PAIR_RAGGED, 75.0, 14)
+    pair_case(f"pair N={PAIR_RAGGED:,} 3D, box 75", pos, w, pos, w,
+              xi_edges, 75.0, None)
+    pair_case(f"pair N={PAIR_RAGGED:,} 3D, no box", pos, w, pos, w,
+              xi_edges, None, None)
+    zero = pair_case(f"pair N={PAIR_RAGGED:,} 3D, edges from 0", pos, w,
+                     pos, w, torch.tensor([0.0, 1.0, 4.0], device=dev),
+                     75.0, None)
+    check(float(zero["counts"][0]) >= float((w * w).sum()),
+          "edges from 0: the self pairs are missing from the first bin")
+    del pos, w
+
+    def pair_times(n, reps, plain):
+        """Median kernel times on the wp path's shape at n halos, the plain
+        versions' (``plain``), and the pairs inside the bins' range."""
+        p, wt = mock(n, PAIR_BOX, 15)
+        esq = (wp_edges * wp_edges).contiguous()
+        g = torch.linspace(-1.0, 2.0, 8, device=dev)
+        out = dict(
+            fwd_ms=time_ms(lambda: pk.pair_counts_fwd_cuda(
+                p, wt, p, wt, esq, PAIR_BOX, PAIR_PIMAX), reps, 1),
+            bwd_ms=time_ms(lambda: pk.pair_counts_bwd_cuda(
+                p, p, wt, esq, g, PAIR_BOX, PAIR_PIMAX), reps, 1))
+        # Unit weights count the pairs the kernels bin (the pi cut and the
+        # range test passed): the data-dependent part of the work.
+        ones = torch.ones_like(wt)
+        out["in_range"] = float(pk.pair_counts_fwd_cuda(
+            p, ones, p, ones, esq, PAIR_BOX, PAIR_PIMAX).double().sum())
+        if plain:
+            out["fwd_plain_ms"] = time_ms(lambda: pk.pair_counts_fwd_plain(
+                p, wt, p, wt, esq, PAIR_BOX, PAIR_PIMAX, PAIR_PLAIN_ROWS),
+                3, 1)
+            out["bwd_plain_ms"] = time_ms(lambda: pk.pair_counts_bwd_plain(
+                p, wt, p, wt, esq, g, PAIR_BOX, PAIR_PIMAX, PAIR_PLAIN_ROWS,
+                True), 3, 1)
+        log(f"pair kernels at {n:,} halos: forward {out['fwd_ms']:.4f} ms, "
+            f"backward {out['bwd_ms']:.4f} ms (plain "
+            f"{out.get('fwd_plain_ms', float('nan')):.3f} / "
+            f"{out.get('bwd_plain_ms', float('nan')):.3f} ms); "
+            f"{out['in_range']:.6g} of {float(n) ** 2:.6g} pairs in range")
+        return out
+
+    pair_1e5 = pair_times(PAIR_HALOS, 20, plain=True) | {
+        k: wp_case[k] for k in ("fwd_err", "bwd_err")}
+    pair_1e6 = pair_times(PAIR_BIG, 3, plain=False)
+
+    # 13. the wp(rp) model at 8,192 halos -------------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 13")
+    wprp = WprpModel(aux_data=make_wprp_data(8192, box_size=100.0))
+    at_truth = float(wprp.calc_loss_from_params(WPRP_TRUTH))
+    check(at_truth < 1e-10, f"wp(rp) loss at TRUTH {at_truth}")
+    wprp_cpu = WprpModel(aux_data={
+        k: (x.cpu() if isinstance(x, torch.Tensor) else x)
+        for k, x in wprp.aux_data.items()})
+    params = (-1.9, -0.9)
+    loss_g, grad_g = wprp.calc_loss_and_grad_from_params(params)
+    loss_c, grad_c = wprp_cpu.calc_loss_and_grad_from_params(params)
+    log(f"wp(rp) at 8,192 halos: loss at TRUTH {at_truth:.3e}; at "
+        f"{params}: card {float(loss_g):.7g} {grad_g.tolist()}, CPU "
+        f"{float(loss_c):.7g} {grad_c.tolist()}")
+    # tests/test_torch_wprp.py's tolerances against the JAX package.
+    check(abs(float(loss_g) - float(loss_c)) <= 1e-3 * abs(float(loss_c)),
+          "wp(rp) loss on the card differs from the CPU")
+    check(bool(torch.allclose(grad_g.cpu(), grad_c, rtol=1e-3, atol=1e-6)),
+          "wp(rp) gradient on the card differs from the CPU")
+    t0 = time.perf_counter()
+    traj = wprp.run_adam(guess=WPRP_GUESS, nsteps=150, learning_rate=0.02,
+                         progress=False)
+    final = traj[-1].cpu().numpy()
+    log(f"wp(rp) recovery: 150 steps at 8,192 halos -> {final.tolist()} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    check(np.allclose(final, WPRP_TRUTH, atol=0.05),
+          f"wp(rp) fit ended at {final}")
+    xi = XiModel(aux_data=make_xi_data(8192, 75.0))
+    xi_loss, xi_grad = xi.calc_loss_and_grad_from_params(params)
+    log(f"xi(r) at 8,192 halos: loss {float(xi_loss):.7g}, gradient "
+        f"{xi_grad.tolist()}")
+    check(bool(torch.isfinite(xi_loss)) and xi_grad.shape == (2,)
+          and bool(torch.isfinite(xi_grad).all()), "xi(r) not finite")
+    del wprp, wprp_cpu, xi, traj
+
+    # 14. the wp(rp) path at catalog scale ------------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 14")
+    t0 = time.perf_counter()
+    wprp = WprpModel(aux_data=make_wprp_data(PAIR_HALOS, box_size=PAIR_BOX,
+                                             pimax=PAIR_PIMAX))
+    torch.cuda.synchronize()
+    log(f"wp(rp): data and target at {PAIR_HALOS:,} halos in "
+        f"{time.perf_counter() - t0:.2f} s")
+    wprp.run_adam(guess=WPRP_GUESS, nsteps=2, learning_rate=0.02,
+                  progress=False)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    traj = wprp.run_adam(guess=WPRP_GUESS, nsteps=20, learning_rate=0.02,
+                         progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    wprp_launches = read_launches()
+    wprp_sps = 20 / seconds
+    log(f"wp(rp) path: 20 Adam steps at {PAIR_HALOS:,} halos in "
+        f"{seconds:.4f} s = {wprp_sps:.3f} steps/s; launches "
+        f"{wprp_launches}")
+    # One forward and one backward sweep per step (an autocorrelation).
+    check(wprp_launches == dict.fromkeys(wrappers, 0) | {
+        "pair_counts_fwd": 20, "pair_counts_bwd": 20},
+        f"kernel launches on the wp(rp) path: {wprp_launches}")
+    check(tuple(traj.shape) == (21, 2) and bool(torch.isfinite(traj).all()),
+          "wp(rp) trajectory not finite or of the wrong shape")
+    loss_0 = float(wprp.calc_loss_from_params(traj[0]))
+    loss_20 = float(wprp.calc_loss_from_params(traj[-1]))
+    log(f"wp(rp) path: loss {loss_0:.6g} -> {loss_20:.6g}, params "
+        f"{traj[-1].tolist()}")
+    check(loss_20 < loss_0, "the wp(rp) loss did not decrease")
+    profile_steps(wprp, 3, WPRP_GUESS, 0.02)
+    del wprp, traj
+    t0 = time.perf_counter()
+    wprp = WprpModel(aux_data=make_wprp_data(PAIR_BIG, box_size=PAIR_BOX,
+                                             pimax=PAIR_PIMAX))
+    torch.cuda.synchronize()
+    log(f"wp(rp): data and target at {PAIR_BIG:,} halos in "
+        f"{time.perf_counter() - t0:.2f} s")
+    big_times = []
+    for _ in range(4):      # one warm-up, then 3 timed
+        t0 = time.perf_counter()
+        loss, grad = wprp.calc_loss_and_grad_from_params(WPRP_GUESS)
+        torch.cuda.synchronize()
+        big_times.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()),
+          "wp(rp) at 1e6 halos not finite")
+    log(f"wp(rp) at {PAIR_BIG:,} halos: loss and gradient in "
+        f"{statistics.median(big_times[1:]):.4f} s (median of "
+        f"{[round(t, 4) for t in big_times[1:]]}, warm-up "
+        f"{big_times[0]:.4f} s); loss {float(loss):.6g}")
+    del wprp
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
@@ -600,6 +825,26 @@ def main():
     fused_bwd_bound = bound(
         4 * (3 * nc + n_fused_edges + (w - 1) * nc + 2 * nc),
         nc * (FUSED_BWD_OPS_PER_SLOT * w + FUSED_BWD_OPS))
+    # The pair kernels at the wp(rp) path's shape (an autocorrelation of
+    # PAIR_HALOS, 9 edges): positions and weights read once, counts or dw
+    # written once; every pair's separation, and the bins of the pairs in
+    # range (counted in this run, phase 12).
+    def pair_bounds(n, in_range):
+        nb = 8
+        fwd = bound(4 * (4 * n + (nb + 1) + nb),
+                    n * n * PAIR_OPS + in_range * PAIR_OPS_PER_BIN * nb)
+        bwd = bound(4 * (4 * n + (nb + 1) + nb + n),
+                    n * n * PAIR_OPS
+                    + in_range * (PAIR_OPS_PER_BIN * nb + PAIR_BWD_OPS))
+        return fwd, bwd
+
+    pair_fwd_bound, pair_bwd_bound = pair_bounds(PAIR_HALOS,
+                                                 pair_1e5["in_range"])
+    for n, times in ((PAIR_HALOS, pair_1e5), (PAIR_BIG, pair_1e6)):
+        fb, bb = pair_bounds(n, times["in_range"])
+        log(f"pair kernels at {n:,}: forward {times['fwd_ms']:.4f} ms (bound "
+            f"{fb[0]:.4f}, {fb[1]}), backward {times['bwd_ms']:.4f} ms "
+            f"(bound {bb[0]:.4f}, {bb[1]})")
     for label, (b_ms, b_by), big_ms in (
             ("erf_counts_fwd_vec", fwd_vec_bound, vec_1e8["fwd_ms"]),
             ("erf_counts_bwd_vec", bwd_vec_bound, vec_1e8["bwd_ms"]),
@@ -629,6 +874,10 @@ def main():
             fused_1e6, "fwd", fused_fwd_bound),
         row("fused_masses_bwd", "fused_masses.cu", 553, fused_launches,
             fused_1e6, "bwd", fused_bwd_bound),
+        row("pair_counts_fwd", "pair_counts.cu", 837, wprp_launches,
+            pair_1e5, "fwd", pair_fwd_bound),
+        row("pair_counts_bwd", "pair_counts.cu", 879, wprp_launches,
+            pair_1e5, "bwd", pair_bwd_bound),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")

@@ -1,5 +1,6 @@
 """Shipped models (port of :mod:`multigrad_tpu.models`): the SMF, the
-static galaxy–halo SHMR and the galaxy–halo history model."""
+static galaxy–halo SHMR, the galaxy–halo history model and the wp(rp) and
+ξ(r) clustering models."""
 from .smf import (ParamTuple, SMFChi2Model, SMFModel,  # noqa: F401
                   TARGET_SUMSTATS, aux_from_numpy, load_halo_masses,
                   make_smf_data)
@@ -9,3 +10,6 @@ from .galhalo import (GalhaloModel, GalhaloParams,  # noqa: F401
 from .galhalo_hist import (GalhaloHistModel,  # noqa: F401
                            GalhaloHistParams, make_galhalo_hist_data,
                            mean_log_mstar, scatter_sigma)
+from .wprp import (WprpModel, WprpParams, XiModel,  # noqa: F401
+                   make_galaxy_mock, make_wprp_data, make_xi_data,
+                   selection_weights, shard_catalog)

@@ -84,18 +84,20 @@ def make_smf_data(num_halos=10_000, comm: Optional[MeshComm] = None,
 
 def aux_from_numpy(aux: dict, device=None) -> dict:
     """A JAX package data dict (``make_smf_data``, ``make_galhalo_data``,
-    ``make_galhalo_hist_data``), its array leaves turned into numpy
-    arrays, as the port's dict of tensors on ``device`` (``None`` means
-    CUDA), so both packages compute on identical inputs.
+    ``make_galhalo_hist_data``, ``make_wprp_data``, ``make_xi_data``), its
+    array leaves turned into numpy arrays, as the port's dict of tensors
+    on ``device`` (``None`` means CUDA), so both packages compute on
+    identical inputs.
 
     Arrays keep their dtype; ``obs_indices`` stays a tuple of ints (epochs
     are configuration); other Python values are kept as they are.  The
-    JAX-only ``backend`` knob is dropped: in the port the device decides.
+    JAX-only ``backend`` knob is dropped (in the port the device decides),
+    and so is ``ring_axis`` (in the port the model's comm decides).
     """
     device = resolve_device(device)
     out = {}
     for name, value in aux.items():
-        if name == "backend":
+        if name in ("backend", "ring_axis"):
             continue
         if name == "obs_indices":
             value = tuple(int(i) for i in np.atleast_1d(value))

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Every kernel source of the port, one shared library each.
-SOURCES = ("erf_counts.cu", "fused_masses.cu")
+SOURCES = ("erf_counts.cu", "fused_masses.cu", "pair_counts.cu")
 #: Where the shared libraries are built: ``build/multigrad_tpu_torch/``
 #: beside the package.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -118,6 +118,12 @@ def grid(n: int, device) -> int:
     every SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-n // _THREADS), sms * _BLOCKS_PER_SM))
+
+
+def row_blocks(n: int) -> int:
+    """Blocks for one thread per item: ``ceil(n / _THREADS)``, at least
+    one."""
+    return max(1, -(-n // _THREADS))
 
 
 def raise_on(code: int, name: str):

@@ -5,6 +5,7 @@ reference / JAX package            this module
 =================================  ====================================
 ``reduce_sum`` / ``lax.psum``      ``torch.distributed.all_reduce``
 ``scatter_nd``                     this process's shard of the array
+``lax.ppermute`` (i → i+1 ring)    ``ring_shift`` (``batch_isend_irecv``)
 =================================  ====================================
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .mesh import MeshComm
 from ..utils.util import pad_to_multiple
@@ -62,3 +64,51 @@ def scatter_nd(array, axis: int = 0, comm: Optional[MeshComm] = None,
                                    pad_value=pad_value)
     per = array.shape[axis] // comm.size
     return array.narrow(axis, comm.rank * per, per).contiguous()
+
+
+def _ring_pass(tensor, comm: MeshComm, shift: int):
+    """``tensor`` sent to rank ``rank + shift`` of the comm, and the one of
+    rank ``rank - shift`` received, both at once (a blocking send before
+    the receive would deadlock the ring)."""
+    rank, size = comm.rank, comm.size
+
+    def peer(r):
+        r %= size
+        if comm.group is None:
+            return r
+        return dist.get_global_rank(comm.group, r)
+
+    out = torch.empty_like(tensor)
+    ops = [dist.P2POp(dist.isend, tensor.contiguous(), peer(rank + shift),
+                      comm.group),
+           dist.P2POp(dist.irecv, out, peer(rank - shift), comm.group)]
+    for request in dist.batch_isend_irecv(ops):
+        request.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """Forward: receive the block of rank − 1, send ours to rank + 1.
+    Backward: the reverse ring (``ppermute``'s transpose), which carries
+    each visiting block's cotangent back to the rank it came from."""
+
+    @staticmethod
+    def forward(ctx, tensor, comm):
+        ctx.comm = comm
+        return _ring_pass(tensor.detach(), comm, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_pass(g, ctx.comm, -1), None
+
+
+def ring_shift(tensor, comm: Optional[MeshComm] = None):
+    """This process's neighbour's ``tensor`` one step around the ring: rank
+    ``r`` receives the tensor of rank ``r − 1`` (the counterpart of
+    ``lax.ppermute(x, axis, perm=[(i, i + 1)])``).  Differentiable: the
+    gradient goes back around the reverse ring.  Every process of the comm
+    must make the same calls in the same order, forward and backward.
+    The identity for ``comm`` None or of size 1."""
+    if comm is None or comm.size == 1:
+        return tensor
+    return _RingShift.apply(tensor, comm)

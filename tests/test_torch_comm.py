@@ -1,6 +1,6 @@
 """The port's comm over ``torch.distributed``: 2-rank gloo runs of the SMF
-and history models against the single-process runs, and the world-size-1
-identity.
+and history models against the single-process runs, the wp(rp) ring at 3
+and 4 ranks, and the world-size-1 identity.
 
 Each rank is a process of its own that holds its shard of the halos,
 as in the original MPI multigrad.  The ranks run this file as a script
@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from multigrad_tpu_torch.models import (GalhaloHistModel, ParamTuple,
-                                        SMFModel, make_galhalo_hist_data,
-                                        make_smf_data)
+                                        SMFModel, WprpModel, WprpParams,
+                                        make_galhalo_hist_data,
+                                        make_smf_data, make_wprp_data)
 from multigrad_tpu_torch.models.galhalo_hist import TRUTH as HIST_TRUTH
 from multigrad_tpu_torch.parallel.collectives import reduce_sum, scatter_nd
 from multigrad_tpu_torch.parallel.mesh import MeshComm, global_comm
@@ -32,6 +33,12 @@ TIMEOUT_S = 120
 # sentinel halo), and 2,501 is ragged for chunks of 1,000.
 HIST_HALOS, HIST_CHUNK = 5_001, 1_000
 HIST_PARAMS = np.array(HIST_TRUTH, np.float32) + 0.03
+# The wp(rp) ring (tests/test_pairwise.py's model): at 3 ranks, where a
+# ring turning the wrong way would show (at 2, rank + 1 == rank - 1), and
+# 510 halos over 4 ranks, padded with two weight-0 halos.
+WPRP_HALOS, WPRP_BOX, WPRP_SEED = 512, 60.0, 2
+WPRP_PARAMS = np.array([-1.95, -0.95])
+WPRP_EPS = 1e-3
 
 
 def _run_rank(kind, rank, world, init_file, out_file):
@@ -41,6 +48,9 @@ def _run_rank(kind, rank, world, init_file, out_file):
     try:
         if kind == "hist":
             _run_hist_rank(out_file)
+            return
+        if kind.startswith("wprp"):
+            _run_wprp_rank(kind, out_file)
             return
         comm = global_comm()
         model = SMFModel(aux_data=make_smf_data(NUM_HALOS, comm=comm,
@@ -70,19 +80,52 @@ def _run_hist_rank(out_file):
              loss=loss.numpy(), grad=grad.numpy())
 
 
-def _launch(kind):
-    """Run this file as ``WORLD`` rank processes of ``kind``; return each
+def _wprp_model(comm, num_halos, seed):
+    return WprpModel(aux_data=make_wprp_data(num_halos, WPRP_BOX, comm=comm,
+                                             seed=seed, device="cpu"),
+                     comm=comm)
+
+
+def _run_wprp_rank(kind, out_file):
+    comm = global_comm()
+    if kind == "wprp_pad":
+        model = _wprp_model(comm, 510, 4)
+        params = WprpParams(-2.0, -1.0)
+        np.savez(out_file, shard=model.aux_data["log_mass"].numpy(),
+                 total=model.calc_sumstats_from_params(params).numpy(),
+                 grad=model.calc_dloss_dparams(params).numpy())
+        return
+    model = _wprp_model(comm, WPRP_HALOS, WPRP_SEED)
+    loss, grad = model.calc_loss_and_grad_from_params(WPRP_PARAMS)
+    # Central finite differences of the sharded loss (every rank runs the
+    # same evaluations: they are collective).
+    fd = []
+    for i in range(2):
+        dp = np.zeros(2)
+        dp[i] = WPRP_EPS
+        hi = float(model.calc_loss_from_params(WPRP_PARAMS + dp))
+        lo = float(model.calc_loss_from_params(WPRP_PARAMS - dp))
+        fd.append((hi - lo) / (2 * WPRP_EPS))
+    np.savez(out_file, shard=model.aux_data["positions"].numpy(),
+             partial=model.calc_sumstats_from_params(
+                 WPRP_PARAMS, total=False).numpy(),
+             total=model.calc_sumstats_from_params(WPRP_PARAMS).numpy(),
+             loss=loss.numpy(), grad=grad.numpy(), fd=np.array(fd))
+
+
+def _launch(kind, world=WORLD):
+    """Run this file as ``world`` rank processes of ``kind``; return each
     rank's saved arrays."""
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "init")
-        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(WORLD)]
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(world)]
         # Two threads a rank: the suite's workers share the cores.
         env = dict(os.environ, PYTHONPATH=REPO_ROOT, OMP_NUM_THREADS="2")
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), kind, str(r),
-             str(WORLD), init_file, outs[r]], cwd=REPO_ROOT, env=env,
+             str(world), init_file, outs[r]], cwd=REPO_ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(WORLD)]
+            for r in range(world)]
         logs = []
         try:
             for p in procs:
@@ -145,6 +188,57 @@ def test_two_rank_history_model_matches_single_process():
         np.testing.assert_allclose(r["loss"], loss.numpy(), rtol=1e-3,
                                    atol=1e-9)
         np.testing.assert_allclose(r["grad"], grad.numpy(), rtol=2e-3,
+                                   atol=1e-6)
+
+
+def test_three_rank_ring_matches_single_process():
+    # The ring at 3 ranks against one process holding every halo: the
+    # partial DD of each rank (its rows against all columns, brought round
+    # by ring_shift) sums to the single block's; the gradient comes back
+    # through the reverse ring.
+    ranks = _launch("wprp", world=3)
+    n_local = -(-WPRP_HALOS // 3)
+    assert all(r["shard"].shape == (n_local, 3) for r in ranks)
+    single = _wprp_model(None, WPRP_HALOS, WPRP_SEED)
+    want = single.calc_sumstats_from_params(WPRP_PARAMS).numpy()
+    loss, grad = single.calc_loss_and_grad_from_params(WPRP_PARAMS)
+    # f32 sums over other splits of the pairs: the JAX package's ring test
+    # tolerances (tests/test_pairwise.py:126-141, 178-196).
+    np.testing.assert_allclose(sum(r["partial"] for r in ranks), want,
+                               rtol=2e-4)
+    for r in ranks:
+        np.testing.assert_array_equal(r["total"], ranks[0]["total"])
+        np.testing.assert_allclose(r["total"], want, rtol=2e-4)
+        np.testing.assert_allclose(r["loss"], loss.numpy(), rtol=1e-3,
+                                   atol=1e-9)
+        np.testing.assert_allclose(r["grad"], grad.numpy(), rtol=1e-3,
+                                   atol=1e-6)
+
+
+def test_three_rank_ring_gradient_matches_finite_differences():
+    # tests/test_pairwise.py:155-167 through the gloo ring: the gradient
+    # of the sharded loss against its central finite differences.
+    ranks = _launch("wprp", world=3)
+    for r in ranks:
+        assert np.all(r["grad"] != 0)
+        np.testing.assert_allclose(r["grad"], r["fd"], rtol=2e-2, atol=1e-5)
+
+
+def test_four_rank_ring_padding_is_neutral():
+    # 510 halos over 4 ranks: two pad halos (log mass -1e9, weight 0) on
+    # the last rank; totals and gradients equal the unpadded single
+    # process's, and the gradients are finite (tests/test_pairwise.py:178).
+    ranks = _launch("wprp_pad", world=4)
+    assert all(r["shard"].shape == (128,) for r in ranks)
+    np.testing.assert_array_equal(ranks[3]["shard"][-2:], -1e9)
+    single = _wprp_model(None, 510, 4)
+    params = WprpParams(-2.0, -1.0)
+    want = single.calc_sumstats_from_params(params).numpy()
+    want_grad = single.calc_dloss_dparams(params).numpy()
+    for r in ranks:
+        assert np.all(np.isfinite(r["grad"])), r["grad"]
+        np.testing.assert_allclose(r["total"], want, rtol=2e-4)
+        np.testing.assert_allclose(r["grad"], want_grad, rtol=1e-3,
                                    atol=1e-6)
 
 

@@ -197,3 +197,82 @@ def test_history_model_on_card_matches_cpu(dev, mode):
         np.testing.assert_allclose(card[2], ref[2], rtol=grad_rtol,
                                    atol=1e-7)
     assert float(gpu.calc_loss_from_params(list(HIST_TRUTH))) < 1e-10
+
+
+# --------------------------------------------------------------------------
+# Pair counts (csrc/pair_counts.cu)
+# --------------------------------------------------------------------------
+def _pair_inputs(dev, n, box, seed):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, box, size=(n, 3)).astype(np.float32)
+    w = rng.uniform(0.2, 1.0, size=n).astype(np.float32)
+    return torch.tensor(pos, device=dev), torch.tensor(w, device=dev)
+
+
+# name: (n1, n2 (None: autocorrelation), box, pimax, edges)
+PAIR_CASES = {
+    "projected_box": (20_003, None, 250.0, 20.0, np.logspace(-0.5, 1.2, 9)),
+    "3d_box": (20_003, None, 75.0, None, np.logspace(-0.3, 1.1, 8)),
+    "3d_no_box": (20_003, None, None, None, np.logspace(-0.3, 1.1, 8)),
+    "asymmetric": (9_001, 14_999, 100.0, 20.0, np.logspace(-0.5, 1.2, 9)),
+    "edge_at_zero": (20_003, None, 75.0, None, np.array([0.0, 1.0, 4.0])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIR_CASES))
+def test_pair_kernels_match_plain(dev, name):
+    # Counts within rtol 1e-4 of the plain version (the same masks, float32
+    # sums of up to N^2 products in another order); gradients rtol 1e-3,
+    # atol 1e-5 max|grad|, as chip_smoke.py phase 12.
+    from multigrad_tpu_torch.ops import pair_kernels as pk
+    n1, n2, box, pimax, edges = PAIR_CASES[name]
+    p1, w1 = _pair_inputs(dev, n1, box or 100.0, 1)
+    p2, w2 = (p1, w1) if n2 is None else _pair_inputs(dev, n2,
+                                                      box or 100.0, 2)
+    esq = torch.tensor(edges, dtype=torch.float32, device=dev) ** 2
+    g = torch.linspace(-1.0, 2.0, esq.shape[0] - 1, device=dev)
+    got = pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq, box, pimax)
+    want = pk.pair_counts_fwd_plain(p1, w1, p2, w2, esq, box, pimax)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4)
+    assert torch.equal(got, pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq,
+                                                    box, pimax))
+    dw1, dw2 = pk.pair_counts_bwd_plain(p1, w1, p2, w2, esq, g, box, pimax,
+                                        autocorr=n2 is None)
+    _assert_close(pk.pair_counts_bwd_cuda(p1, p2, w2, esq, g, box, pimax),
+                  dw1)
+    if n2 is not None:
+        _assert_close(pk.pair_counts_bwd_cuda(p2, p1, w1, esq, g, box,
+                                              pimax), dw2)
+    if edges[0] == 0.0:
+        # The self pairs sit in the first bin: Σ w² of them.
+        assert float(got[0]) >= float((w1 * w1).sum())
+
+
+def test_pair_counts_autograd_launches(dev):
+    from multigrad_tpu_torch.ops import pair_kernels as pk
+    p1, w1 = _pair_inputs(dev, 5_000, 100.0, 3)
+    p2, w2 = _pair_inputs(dev, 4_000, 100.0, 4)
+    edges = torch.tensor(np.logspace(-0.5, 1.2, 9), dtype=torch.float32,
+                         device=dev)
+    for autocorr, n_bwd in ((True, 1), (False, 2)):
+        a = w1.clone().requires_grad_()
+        b = a if autocorr else w2.clone().requires_grad_()
+        before = (pk.pair_counts_fwd_cuda.launches,
+                  pk.pair_counts_bwd_cuda.launches)
+        counts = pk.pair_counts(p1, a, p1 if autocorr else p2, b, edges,
+                                box_size=100.0, pimax=20.0)
+        counts.sum().backward()
+        torch.cuda.synchronize()
+        assert (pk.pair_counts_fwd_cuda.launches,
+                pk.pair_counts_bwd_cuda.launches) == (before[0] + 1,
+                                                      before[1] + n_bwd)
+        assert torch.isfinite(a.grad).all()
+
+
+def test_wprp_loss_at_truth_on_card(dev):
+    from multigrad_tpu_torch.models import WprpModel, make_wprp_data
+    from multigrad_tpu_torch.models.wprp import TRUTH
+    model = WprpModel(aux_data=make_wprp_data(8192, box_size=100.0,
+                                              device=dev))
+    assert float(model.calc_loss_from_params(TRUTH)) < 1e-10

@@ -41,6 +41,9 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.ops.cuda_build\n"
         "import multigrad_tpu_torch.models.galhalo\n"
         "import multigrad_tpu_torch.models.galhalo_hist\n"
+        "import multigrad_tpu_torch.models.wprp\n"
+        "import multigrad_tpu_torch.ops.pair_kernels\n"
+        "import multigrad_tpu_torch.ops.pairwise\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -56,7 +59,10 @@ def test_no_forbidden_import_in_sources():
     assert {os.path.join("ops", "fused_kernels.py"),
             os.path.join("ops", "cuda_build.py"),
             os.path.join("models", "galhalo.py"),
-            os.path.join("models", "galhalo_hist.py")} <= names
+            os.path.join("models", "galhalo_hist.py"),
+            os.path.join("models", "wprp.py"),
+            os.path.join("ops", "pair_kernels.py"),
+            os.path.join("ops", "pairwise.py")} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -65,15 +71,18 @@ def test_no_forbidden_import_in_sources():
 
 @pytest.mark.parametrize("entry", ["make_smf_data", "resolve_device",
                                    "bounds_to_arrays", "make_galhalo_data",
-                                   "make_galhalo_hist_data"])
+                                   "make_galhalo_hist_data", "make_wprp_data",
+                                   "make_xi_data", "make_galaxy_mock"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
-    from multigrad_tpu_torch.models import (make_galhalo_data,
+    from multigrad_tpu_torch.models import (make_galaxy_mock,
+                                            make_galhalo_data,
                                             make_galhalo_hist_data,
-                                            make_smf_data)
+                                            make_smf_data, make_wprp_data,
+                                            make_xi_data)
     from multigrad_tpu_torch.optim.transforms import bounds_to_arrays
     from multigrad_tpu_torch.utils.util import resolve_device
     call = {"make_smf_data": lambda: make_smf_data(100),
@@ -81,6 +90,9 @@ def test_default_device_is_cuda(entry):
             "bounds_to_arrays": lambda: bounds_to_arrays(None, 2),
             "make_galhalo_data": lambda: make_galhalo_data(100),
             "make_galhalo_hist_data": lambda: make_galhalo_hist_data(100),
+            "make_wprp_data": lambda: make_wprp_data(100),
+            "make_xi_data": lambda: make_xi_data(100),
+            "make_galaxy_mock": lambda: make_galaxy_mock(100),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
