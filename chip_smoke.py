@@ -30,17 +30,23 @@ order:
     ``bin_mode="fused"``, launches counted;
 12. the pair-count kernels against their plain versions at N = 100,003
     (projected with a box, 3D with and without a box, an asymmetric pair
-    of blocks, edges from 0), bit-identical on repeat, timed at 1e5 and
-    1e6 halos;
+    of blocks, edges from 0): the forward's counts and row sums (equal to
+    the plain ones with unit weights), bit-identical on repeat, the row
+    gradient from them and the pair sweep; an asymmetric pair through
+    autograd, launches counted (the only path that sweeps); the three
+    kernels timed at 1e5 and 1e6 halos;
 13. the wp(rp) model at 8,192 halos: loss at TRUTH, one loss and gradient
     on the card against the same model on the CPU, 150 Adam steps recover
     TRUTH; one loss and gradient of the xi(r) model;
 14. the wp(rp) path: ``WprpModel(make_wprp_data(1e5, box_size=250,
-    pimax=20)).run_adam`` for 20 steps, launches counted, and seconds per
-    loss and gradient at 1e6 halos.
+    pimax=20)).run_adam`` for 20 steps, launches counted (a forward and a
+    row gradient a step, no sweep), and seconds per loss and gradient at
+    1e6 halos.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
-JSON object per kernel run (``kernels``), the ``nvidia-smi`` line, and
+JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
+device time per launch in its path's profiler window), the ``nvidia-smi``
+line, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 It imports torch, numpy, the port and ``tools/hist_card_vs_cpu.py``
@@ -92,14 +98,15 @@ FUSED_SIGMA_MAX = 0.32
 # The pair counts (bench.py:416-460 and :295-336): a galaxy mock in a
 # 250 Mpc/h box, pimax 20, 8 r_p bins on logspace(-0.5, 1.2, 9); the xi
 # bins logspace(-0.3, 1.1, 8).  f32 operations per pair, counted from
-# csrc/pair_counts.cu: 22 with a box (differences 3, minimum image 12,
-# squares and sums 3 projected or 5 in 3D, the pi cut 2 when projected,
-# the range test 2); per pair inside the bins' range, 3 per bin (two
-# compares and a predicated add), and 2 more in the backward (dw += G w).
+# csrc/pair_counts.cu: 19 with a box (differences 3, minimum image 9: |d|,
+# a compare and a subtract a coordinate, squares and sums 3 projected or
+# 5 in 3D, the pi cut 2 when projected, the range test 2); per pair inside
+# the bins' range, 3 per bin (two compares and a predicated add); per row,
+# 2 per bin for dw = sum_b g_b R_b (the row gradient, the sweep's end).
 PAIR_HALOS, PAIR_BIG = 100_000, 1_000_000
 PAIR_RAGGED = 100_003
 PAIR_BOX, PAIR_PIMAX = 250.0, 20.0
-PAIR_OPS, PAIR_OPS_PER_BIN, PAIR_BWD_OPS = 22, 3, 2
+PAIR_OPS, PAIR_OPS_PER_BIN, PAIR_ROW_OPS_PER_BIN = 19, 3, 2
 PAIR_PLAIN_ROWS = 512
 WPRP_GUESS = (-1.8, -0.8)
 
@@ -113,16 +120,15 @@ def check(ok, what):
         raise AssertionError(what)
 
 
-def profile_steps(model, nsteps, guess=GUESS, learning_rate=0.02):
-    """Device time by kernel over ``nsteps`` Adam steps (torch.profiler),
-    and the device's busy share of the wall time."""
+def device_times(fn):
+    """Device time and launches by kernel name over ``fn()``
+    (torch.profiler), ``{name: (us, launches)}``, and the wall us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.run_adam(guess=guess, nsteps=nsteps,
-                       learning_rate=learning_rate, progress=False)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -130,9 +136,35 @@ def profile_steps(model, nsteps, guess=GUESS, learning_rate=0.02):
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             us, count = by_name.get(evt.name, (0.0, 0))
             by_name[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
+    return by_name, wall_us
+
+
+def kernel_device_ms(by_name, stem, flag=None):
+    """Mean device ms per launch of the kernels called ``stem`` (whose last
+    template argument is ``flag``, when given) in a ``device_times``
+    window; None where the window holds none."""
+    us = count = 0
+    for name, (t, c) in by_name.items():
+        if stem not in name:
+            continue
+        args = name.split(stem, 1)[1]
+        if flag is not None and (not args.startswith("<") or args[1:].split(
+                ">", 1)[0].replace(" ", "").split(",")[-1] != flag):
+            continue
+        us, count = us + t, count + c
+    return us / count / 1e3 if count else None
+
+
+def profile_steps(model, nsteps, guess=GUESS, learning_rate=0.02):
+    """Device time by kernel over ``nsteps`` Adam steps (torch.profiler),
+    and the device's busy share of the wall time; returns the
+    ``device_times`` of the window."""
+    by_name, wall_us = device_times(lambda: model.run_adam(
+        guess=guess, nsteps=nsteps, learning_rate=learning_rate,
+        progress=False))
     if not by_name:
         log("profile: the profiler saw no device time (not measured)")
-        return
+        return by_name
     busy_us = sum(us for us, _ in by_name.values())
     log(f"profile of {nsteps} steps: wall {wall_us / nsteps / 1e3:.4f} "
         f"ms/step, device busy {busy_us / nsteps / 1e3:.4f} ms/step "
@@ -141,6 +173,7 @@ def profile_steps(model, nsteps, guess=GUESS, learning_rate=0.02):
                                     key=lambda kv: -kv[1][0])[:12]:
         log(f"  {us / nsteps / 1e3:.4f} ms/step, {count / nsteps:g} "
             f"launches/step: {name[:100]}")
+    return by_name
 
 
 def main():
@@ -178,6 +211,7 @@ def main():
                 "fused_masses_fwd": fk.fused_masses_fwd_cuda,
                 "fused_masses_bwd": fk.fused_masses_bwd_cuda,
                 "pair_counts_fwd": pk.pair_counts_fwd_cuda,
+                "pair_rowgrad": pk.pair_rowgrad_cuda,
                 "pair_counts_bwd": pk.pair_counts_bwd_cuda}
 
     def reset_launches():
@@ -337,7 +371,7 @@ def main():
     log(f"main path: loss {loss_0:.6g} -> {loss_20:.6g}, params "
         f"{traj[-1].tolist()}")
     check(loss_20 < loss_0, "the loss did not decrease")
-    profile_steps(model, 5)
+    smf_profile = profile_steps(model, 5)
     del model, aux, traj
 
     # 6. recovery at 1e6 halos -----------------------------------------
@@ -355,20 +389,19 @@ def main():
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
 
+    def close(label, name, got, want, rtol=1e-3):
+        """rtol plus atol 1e-5·max|want|, all finite; max |err|."""
+        check(bool(torch.isfinite(got).all()), f"{label}: {name} not finite")
+        scale = float(want.abs().max())
+        excess = float(((got - want).abs() - rtol * want.abs()).max())
+        check(excess <= 1e-5 * scale, f"{label}: {name} off by {excess} "
+              f"beyond rtol {rtol}, atol {1e-5 * scale}")
+        return float((got - want).abs().max())
+
     def grads_close(label, got, want):
         """Gradients: rtol 1e-3 plus atol 1e-5·max|grad|; max |err|."""
-        err = 0.0
-        for name, a, b in zip(("dvalues", "dedges", "dsigma"), got, want):
-            if a is None:
-                continue
-            check(bool(torch.isfinite(a).all()), f"{label}: {name} not "
-                  "finite")
-            scale = float(b.abs().max())
-            excess = float(((a - b).abs() - 1e-3 * b.abs()).max())
-            check(excess <= 1e-5 * scale, f"{label}: {name} off by "
-                  f"{excess} beyond rtol 1e-3, atol {1e-5 * scale}")
-            err = max(err, float((a - b).abs().max()))
-        return err
+        return max(close(label, name, a, b) for name, a, b in zip(
+            ("dvalues", "dedges", "dsigma"), got, want) if a is not None)
 
     # 7. dense kernels, per-particle sigma ------------------------------
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7")
@@ -588,21 +621,21 @@ def main():
         loss_n = float(model.calc_loss_from_params(traj[-1]))
         log(f"{mode}: loss {loss_0:.6g} -> {loss_n:.6g}")
         check(loss_n < loss_0, f"{mode}: the loss did not decrease")
-        profile_steps(model, 1, guess, HIST_LR)
+        by_name = profile_steps(model, 1, guess, HIST_LR)
         del model, traj
         torch.cuda.empty_cache()
-        return launches, nsteps / seconds
+        return launches, nsteps / seconds, by_name
 
     chunks = BIG_HALOS // HIST_CHUNK
     # Per step each chunk runs its forward twice (the pass itself and the
     # checkpoint's recompute in the backward) and its backward once, for
     # each epoch: 20 x 100 x 3 x 2 = 12,000 forward and 6,000 backward
     # launches dense; 20 x 100 x 6 x 2 = 24,000 and 12,000 fused.
-    dense_launches, dense_sps = hist_path(
+    dense_launches, dense_sps, dense_profile = hist_path(
         "dense", {}, HIST_STEPS,
         {"erf_counts_fwd_vec": HIST_STEPS * chunks * 3 * 2,
          "erf_counts_bwd_vec": HIST_STEPS * chunks * 3})
-    fused_launches, fused_sps = hist_path(
+    fused_launches, fused_sps, fused_profile = hist_path(
         "fused", fused_kwargs, HIST_STEPS,
         {"fused_masses_fwd": HIST_STEPS * chunks * len(FUSED_OBS) * 2,
          "fused_masses_bwd": HIST_STEPS * chunks * len(FUSED_OBS)})
@@ -621,49 +654,82 @@ def main():
     def pair_case(label, p1, w1, p2, w2, edges, box, pimax):
         """Kernels against plain: counts rtol 1e-4 per bin (the same masks,
         float32 sums of up to N1·N2 products in another order), bit-
-        identical on repeat; dw rtol 1e-3, atol 1e-5·max|dw|."""
+        identical on repeat, as are the row sums R (rtol 1e-4); dw rtol
+        1e-3, atol 1e-5·max|dw|: dw1 from R (pair_rowgrad) and from the
+        sweep, and a cross pair's dw2 from the sweep with the sides
+        swapped."""
         esq = (edges * edges).contiguous()
         g = torch.linspace(-1.0, 2.0, esq.shape[0] - 1, device=dev)
         auto = p2 is p1
-        got = pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq, box, pimax)
-        want = pk.pair_counts_fwd_plain(p1, w1, p2, w2, esq, box, pimax,
-                                        PAIR_PLAIN_ROWS)
+        got, rows = pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq, box, pimax,
+                                            rows=True)
+        want, rows_plain = pk.pair_counts_fwd_plain(
+            p1, w1, p2, w2, esq, box, pimax, PAIR_PLAIN_ROWS, rows=True)
         torch.cuda.synchronize()
         fwd_err = float((got - want).abs().max())
         check(bool(torch.all((got - want).abs() <= 1e-4 * want.abs())),
               f"{label}: counts {got.tolist()} != plain {want.tolist()}")
-        check(torch.equal(got, pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq,
-                                                       box, pimax)),
+        again, rows_again = pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq, box,
+                                                    pimax, rows=True)
+        check(torch.equal(got, again) and torch.equal(rows, rows_again),
               f"{label}: pair forward not deterministic")
+        rows_err = close(label, "R", rows, rows_plain, 1e-4)
+        del again, rows_again, rows_plain
         dw1, dw2 = pk.pair_counts_bwd_plain(p1, w1, p2, w2, esq, g, box,
                                             pimax, PAIR_PLAIN_ROWS, auto)
-        sweeps = [("dw1", pk.pair_counts_bwd_cuda(p1, p2, w2, esq, g, box,
-                                                  pimax), dw1)]
+        row_err = close(label, "dw1 (pair_rowgrad)",
+                        pk.pair_rowgrad_cuda(rows, g), dw1, 1e-3)
+        sweep_err = close(label, "dw1 (sweep)", pk.pair_counts_bwd_cuda(
+            p1, p2, w2, esq, g, box, pimax), dw1, 1e-3)
         if not auto:
-            sweeps.append(("dw2", pk.pair_counts_bwd_cuda(
-                p2, p1, w1, esq, g, box, pimax), dw2))
-        bwd_err = 0.0
-        for name, a, b in sweeps:
-            check(bool(torch.isfinite(a).all()), f"{label}: {name} not "
-                  "finite")
-            scale = float(b.abs().max())
-            excess = float(((a - b).abs() - 1e-3 * b.abs()).max())
-            check(excess <= 1e-5 * scale, f"{label}: {name} off by "
-                  f"{excess} beyond rtol 1e-3, atol {1e-5 * scale}")
-            bwd_err = max(bwd_err, float((a - b).abs().max()))
-        swept = " and ".join(name for name, _, _ in sweeps)
+            sweep_err = max(sweep_err, close(
+                label, "dw2 (sweep)", pk.pair_counts_bwd_cuda(
+                    p2, p1, w1, esq, g, box, pimax), dw2, 1e-3))
         log(f"{label}: counts max|err| {fwd_err:.3e} (counts up to "
-            f"{float(want.abs().max()):.6g}), {swept} max|err| "
-            f"{bwd_err:.3e}")
-        return dict(fwd_err=fwd_err, bwd_err=bwd_err, counts=got)
+            f"{float(want.abs().max()):.6g}), R max|err| {rows_err:.3e}, "
+            f"dw max|err| {row_err:.3e} (pair_rowgrad), {sweep_err:.3e} "
+            f"(sweep)")
+        return dict(fwd_err=fwd_err, rowgrad_err=row_err,
+                    bwd_err=sweep_err, counts=got, dw1=dw1, dw2=dw2, g=g)
 
     pos, w = mock(PAIR_RAGGED, PAIR_BOX, 12)
     wp_case = pair_case(f"pair N={PAIR_RAGGED:,} projected, box",
                         pos, w, pos, w, wp_edges, PAIR_BOX, PAIR_PIMAX)
+    # Unit weights: R holds pair counts, integers below 2^24, so kernel and
+    # plain agree exactly only if every pair's mask does.
+    ones = torch.ones_like(w)
+    wp_esq = (wp_edges * wp_edges).contiguous()
+    _, unit_rows = pk.pair_counts_fwd_cuda(pos, ones, pos, ones, wp_esq,
+                                           PAIR_BOX, PAIR_PIMAX, rows=True)
+    _, unit_plain = pk.pair_counts_fwd_plain(pos, ones, pos, ones, wp_esq,
+                                             PAIR_BOX, PAIR_PIMAX,
+                                             PAIR_PLAIN_ROWS, rows=True)
+    check(float(unit_plain.max()) < 2 ** 24 and float(unit_plain.sum()) > 0,
+          "unit-weight row sums out of the exact range")
+    check(torch.equal(unit_rows, unit_plain),
+          f"unit-weight row sums differ from plain in "
+          f"{int((unit_rows != unit_plain).sum())} entries")
+    log(f"pair N={PAIR_RAGGED:,} unit weights: R equals plain exactly "
+        f"({float(unit_plain.sum()):.10g} ordered pairs binned)")
+    del ones, unit_rows, unit_plain
     pos2, w2 = mock(60_001, PAIR_BOX, 13)
-    pair_case("pair 100,003 x 60,001 projected, box", pos, w, pos2, w2,
-              wp_edges, PAIR_BOX, PAIR_PIMAX)
-    del pos, w, pos2, w2
+    cross = pair_case(f"pair {PAIR_RAGGED:,} x 60,001 projected, box", pos,
+                      w, pos2, w2, wp_edges, PAIR_BOX, PAIR_PIMAX)
+    # The same pair of blocks through autograd: the path that sweeps.
+    a, b = w.clone().requires_grad_(), w2.clone().requires_grad_()
+    reset_launches()
+    counts = pk.pair_counts(pos, a, pos2, b, wp_edges, box_size=PAIR_BOX,
+                            pimax=PAIR_PIMAX)
+    (counts * cross["g"]).sum().backward()
+    torch.cuda.synchronize()
+    cross_launches = read_launches()
+    log(f"cross-correlation through autograd: launches {cross_launches}")
+    check(cross_launches == dict.fromkeys(wrappers, 0) | {
+        "pair_counts_fwd": 1, "pair_rowgrad": 1, "pair_counts_bwd": 1},
+        f"cross-correlation launches {cross_launches}")
+    close("cross autograd", "dw1", a.grad, cross["dw1"], 1e-3)
+    close("cross autograd", "dw2", b.grad, cross["dw2"], 1e-3)
+    del pos, w, pos2, w2, a, b, counts
     pos, w = mock(PAIR_RAGGED, 75.0, 14)
     pair_case(f"pair N={PAIR_RAGGED:,} 3D, box 75", pos, w, pos, w,
               xi_edges, 75.0, None)
@@ -677,16 +743,25 @@ def main():
     del pos, w
 
     def pair_times(n, reps, plain):
-        """Median kernel times on the wp path's shape at n halos, the plain
-        versions' (``plain``), and the pairs inside the bins' range."""
+        """Median kernel times on the wp path's shape at n halos (the
+        forward as the path runs it, with R), the plain versions' and the
+        library product's (``plain``), the sweep's device time, and the
+        pairs inside the bins' range."""
         p, wt = mock(n, PAIR_BOX, 15)
         esq = (wp_edges * wp_edges).contiguous()
         g = torch.linspace(-1.0, 2.0, 8, device=dev)
+        _, rows = pk.pair_counts_fwd_cuda(p, wt, p, wt, esq, PAIR_BOX,
+                                          PAIR_PIMAX, rows=True)
+
+        def sweep():
+            return pk.pair_counts_bwd_cuda(p, p, wt, esq, g, PAIR_BOX,
+                                           PAIR_PIMAX)
+
         out = dict(
             fwd_ms=time_ms(lambda: pk.pair_counts_fwd_cuda(
-                p, wt, p, wt, esq, PAIR_BOX, PAIR_PIMAX), reps, 1),
-            bwd_ms=time_ms(lambda: pk.pair_counts_bwd_cuda(
-                p, p, wt, esq, g, PAIR_BOX, PAIR_PIMAX), reps, 1))
+                p, wt, p, wt, esq, PAIR_BOX, PAIR_PIMAX, rows=True), reps, 1),
+            rowgrad_ms=time_ms(lambda: pk.pair_rowgrad_cuda(rows, g), 50),
+            bwd_ms=time_ms(sweep, reps, 1))
         # Unit weights count the pairs the kernels bin (the pi cut and the
         # range test passed): the data-dependent part of the work.
         ones = torch.ones_like(wt)
@@ -694,20 +769,31 @@ def main():
             p, ones, p, ones, esq, PAIR_BOX, PAIR_PIMAX).double().sum())
         if plain:
             out["fwd_plain_ms"] = time_ms(lambda: pk.pair_counts_fwd_plain(
-                p, wt, p, wt, esq, PAIR_BOX, PAIR_PIMAX, PAIR_PLAIN_ROWS),
-                3, 1)
+                p, wt, p, wt, esq, PAIR_BOX, PAIR_PIMAX, PAIR_PLAIN_ROWS,
+                rows=True), 3, 1)
+            out["rowgrad_plain_ms"] = time_ms(
+                lambda: pk.pair_rowgrad_plain(rows, g), 50)
+            out["rowgrad_library_ms"] = time_ms(
+                lambda: torch.matmul(g, rows), 50)
             out["bwd_plain_ms"] = time_ms(lambda: pk.pair_counts_bwd_plain(
                 p, wt, p, wt, esq, g, PAIR_BOX, PAIR_PIMAX, PAIR_PLAIN_ROWS,
                 True), 3, 1)
+            by_name, _ = device_times(lambda: [sweep() for _ in range(3)])
+            out["bwd_device_ms"] = kernel_device_ms(by_name,
+                                                    "pair_bwd_kernel")
         log(f"pair kernels at {n:,} halos: forward {out['fwd_ms']:.4f} ms, "
-            f"backward {out['bwd_ms']:.4f} ms (plain "
+            f"pair_rowgrad {out['rowgrad_ms']:.4f} ms, sweep "
+            f"{out['bwd_ms']:.4f} ms (plain "
             f"{out.get('fwd_plain_ms', float('nan')):.3f} / "
-            f"{out.get('bwd_plain_ms', float('nan')):.3f} ms); "
+            f"{out.get('rowgrad_plain_ms', float('nan')):.4f} / "
+            f"{out.get('bwd_plain_ms', float('nan')):.3f} ms; torch.matmul "
+            f"{out.get('rowgrad_library_ms', float('nan')):.4f} ms); "
             f"{out['in_range']:.6g} of {float(n) ** 2:.6g} pairs in range")
         return out
 
     pair_1e5 = pair_times(PAIR_HALOS, 20, plain=True) | {
-        k: wp_case[k] for k in ("fwd_err", "bwd_err")}
+        "fwd_err": wp_case["fwd_err"], "rowgrad_err": wp_case["rowgrad_err"],
+        "bwd_err": cross["bwd_err"]}
     pair_1e6 = pair_times(PAIR_BIG, 3, plain=False)
 
     # 13. the wp(rp) model at 8,192 halos -------------------------------
@@ -767,9 +853,10 @@ def main():
     log(f"wp(rp) path: 20 Adam steps at {PAIR_HALOS:,} halos in "
         f"{seconds:.4f} s = {wprp_sps:.3f} steps/s; launches "
         f"{wprp_launches}")
-    # One forward and one backward sweep per step (an autocorrelation).
+    # An autocorrelation: one forward (with R) and one row gradient a step,
+    # no sweep.
     check(wprp_launches == dict.fromkeys(wrappers, 0) | {
-        "pair_counts_fwd": 20, "pair_counts_bwd": 20},
+        "pair_counts_fwd": 20, "pair_rowgrad": 20},
         f"kernel launches on the wp(rp) path: {wprp_launches}")
     check(tuple(traj.shape) == (21, 2) and bool(torch.isfinite(traj).all()),
           "wp(rp) trajectory not finite or of the wrong shape")
@@ -778,7 +865,7 @@ def main():
     log(f"wp(rp) path: loss {loss_0:.6g} -> {loss_20:.6g}, params "
         f"{traj[-1].tolist()}")
     check(loss_20 < loss_0, "the wp(rp) loss did not decrease")
-    profile_steps(wprp, 3, WPRP_GUESS, 0.02)
+    wp_profile = profile_steps(wprp, 3, WPRP_GUESS, 0.02)
     del wprp, traj
     t0 = time.perf_counter()
     wprp = WprpModel(aux_data=make_wprp_data(PAIR_BIG, box_size=PAIR_BOX,
@@ -826,25 +913,27 @@ def main():
         4 * (3 * nc + n_fused_edges + (w - 1) * nc + 2 * nc),
         nc * (FUSED_BWD_OPS_PER_SLOT * w + FUSED_BWD_OPS))
     # The pair kernels at the wp(rp) path's shape (an autocorrelation of
-    # PAIR_HALOS, 9 edges): positions and weights read once, counts or dw
-    # written once; every pair's separation, and the bins of the pairs in
-    # range (counted in this run, phase 12).
+    # PAIR_HALOS, 9 edges): positions and weights read once, counts and R,
+    # or dw, written once; every pair's separation, and the bins of the
+    # pairs in range (counted in this run, phase 12).  The row gradient
+    # reads R and writes dw.
     def pair_bounds(n, in_range):
         nb = 8
-        fwd = bound(4 * (4 * n + (nb + 1) + nb),
-                    n * n * PAIR_OPS + in_range * PAIR_OPS_PER_BIN * nb)
-        bwd = bound(4 * (4 * n + (nb + 1) + nb + n),
-                    n * n * PAIR_OPS
-                    + in_range * (PAIR_OPS_PER_BIN * nb + PAIR_BWD_OPS))
-        return fwd, bwd
+        pairs = n * n * PAIR_OPS + in_range * PAIR_OPS_PER_BIN * nb
+        fwd = bound(4 * (4 * n + (nb + 1) + nb + nb * n), pairs)
+        rowgrad = bound(4 * (nb * n + nb + n), PAIR_ROW_OPS_PER_BIN * nb * n)
+        sweep = bound(4 * (4 * n + (nb + 1) + nb + n),
+                      pairs + PAIR_ROW_OPS_PER_BIN * nb * n)
+        return fwd, rowgrad, sweep
 
-    pair_fwd_bound, pair_bwd_bound = pair_bounds(PAIR_HALOS,
-                                                 pair_1e5["in_range"])
+    pair_fwd_bound, pair_row_bound, pair_bwd_bound = pair_bounds(
+        PAIR_HALOS, pair_1e5["in_range"])
     for n, times in ((PAIR_HALOS, pair_1e5), (PAIR_BIG, pair_1e6)):
-        fb, bb = pair_bounds(n, times["in_range"])
+        fb, rb, bb = pair_bounds(n, times["in_range"])
         log(f"pair kernels at {n:,}: forward {times['fwd_ms']:.4f} ms (bound "
-            f"{fb[0]:.4f}, {fb[1]}), backward {times['bwd_ms']:.4f} ms "
-            f"(bound {bb[0]:.4f}, {bb[1]})")
+            f"{fb[0]:.4f}, {fb[1]}), pair_rowgrad {times['rowgrad_ms']:.4f} "
+            f"ms (bound {rb[0]:.4f}, {rb[1]}), sweep {times['bwd_ms']:.4f} "
+            f"ms (bound {bb[0]:.4f}, {bb[1]})")
     for label, (b_ms, b_by), big_ms in (
             ("erf_counts_fwd_vec", fwd_vec_bound, vec_1e8["fwd_ms"]),
             ("erf_counts_bwd_vec", bwd_vec_bound, vec_1e8["bwd_ms"]),
@@ -853,31 +942,61 @@ def main():
         log(f"{label}: bound {b_ms:.4f} ms at 1e6 ({b_by}); "
             f"{big_ms:.4f} ms at 1e8 (bound {100 * b_ms:.4f} ms)")
 
-    def row(name, source, line, launches, out, key, b):
+    def row(name, line, launches, path, out, key, b, device_ms,
+            source="pair_counts.cu", library_ms=None):
+        if device_ms is None:
+            log(f"{name}: the profiler saw no device time; device_ms from "
+                "CUDA events around the launch")
+            device_ms = out[f"{key}_ms"]
         return dict(name=name, route="cuda",
                     source=f"multigrad_tpu_torch/csrc/{source}",
                     replaces=f"multigrad_tpu/ops/pallas_kernels.py:{line}",
-                    launches=launches[name], max_abs_err=out[f"{key}_err"],
-                    ms=out[f"{key}_ms"], plain_ms=out[f"{key}_plain_ms"],
-                    bound_ms=b[0], bound_by=b[1], library_ms=None)
+                    launches=launches[name], launches_on=path,
+                    max_abs_err=out[f"{key}_err"], ms=out[f"{key}_ms"],
+                    device_ms=device_ms, plain_ms=out[f"{key}_plain_ms"],
+                    bound_ms=b[0], bound_by=b[1], library_ms=library_ms)
 
+    smf_path = f"SMF, {BIG_HALOS:,} halos, 20 Adam steps"
+    hist_run = f"{BIG_HALOS:,} halos, {HIST_STEPS} Adam steps"
     kernels = [
-        row("erf_counts_fwd", "erf_counts.cu", 201, smf_launches, big,
-            "fwd", (fwd_bound, fwd_by)),
-        row("erf_counts_bwd", "erf_counts.cu", 237, smf_launches, big,
-            "bwd", (bwd_bound, bwd_by)),
-        row("erf_counts_fwd_vec", "erf_counts.cu", 201, dense_launches,
-            vec_1e6, "fwd", fwd_vec_bound),
-        row("erf_counts_bwd_vec", "erf_counts.cu", 237, dense_launches,
-            vec_1e6, "bwd", bwd_vec_bound),
-        row("fused_masses_fwd", "fused_masses.cu", 526, fused_launches,
-            fused_1e6, "fwd", fused_fwd_bound),
-        row("fused_masses_bwd", "fused_masses.cu", 553, fused_launches,
-            fused_1e6, "bwd", fused_bwd_bound),
-        row("pair_counts_fwd", "pair_counts.cu", 837, wprp_launches,
-            pair_1e5, "fwd", pair_fwd_bound),
-        row("pair_counts_bwd", "pair_counts.cu", 879, wprp_launches,
-            pair_1e5, "bwd", pair_bwd_bound),
+        row("erf_counts_fwd", 201, smf_launches, smf_path, big, "fwd",
+            (fwd_bound, fwd_by),
+            kernel_device_ms(smf_profile, "erf_fwd_kernel", "false"),
+            "erf_counts.cu"),
+        row("erf_counts_bwd", 237, smf_launches, smf_path, big, "bwd",
+            (bwd_bound, bwd_by),
+            kernel_device_ms(smf_profile, "erf_bwd_kernel", "false"),
+            "erf_counts.cu"),
+        row("erf_counts_fwd_vec", 201, dense_launches,
+            f"history dense, {hist_run}", vec_1e6, "fwd", fwd_vec_bound,
+            kernel_device_ms(dense_profile, "erf_fwd_kernel", "true"),
+            "erf_counts.cu"),
+        row("erf_counts_bwd_vec", 237, dense_launches,
+            f"history dense, {hist_run}", vec_1e6, "bwd", bwd_vec_bound,
+            kernel_device_ms(dense_profile, "erf_bwd_kernel", "true"),
+            "erf_counts.cu"),
+        row("fused_masses_fwd", 526, fused_launches,
+            f"history fused, {hist_run}", fused_1e6, "fwd", fused_fwd_bound,
+            kernel_device_ms(fused_profile, "fused_fwd_kernel", "true"),
+            "fused_masses.cu"),
+        row("fused_masses_bwd", 553, fused_launches,
+            f"history fused, {hist_run}", fused_1e6, "bwd", fused_bwd_bound,
+            kernel_device_ms(fused_profile, "fused_bwd_kernel", "true"),
+            "fused_masses.cu"),
+        row("pair_counts_fwd", 837, wprp_launches,
+            f"wp(rp), {PAIR_HALOS:,} halos, 20 Adam steps", pair_1e5,
+            "fwd", pair_fwd_bound,
+            kernel_device_ms(wp_profile, "pair_fwd_kernel")),
+        row("pair_rowgrad", 879, wprp_launches,
+            f"wp(rp), {PAIR_HALOS:,} halos, 20 Adam steps", pair_1e5,
+            "rowgrad", pair_row_bound,
+            kernel_device_ms(wp_profile, "pair_rowgrad_kernel"),
+            library_ms=pair_1e5["rowgrad_library_ms"]),
+        # No one-process model path sweeps the pairs in its backward: the
+        # sweep's launches are those of phase 12's cross-correlation.
+        row("pair_counts_bwd", 879, cross_launches,
+            "phase 12's cross-correlation through autograd", pair_1e5,
+            "bwd", pair_bwd_bound, pair_1e5["bwd_device_ms"]),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")

@@ -221,9 +221,9 @@ PAIR_CASES = {
 
 @pytest.mark.parametrize("name", sorted(PAIR_CASES))
 def test_pair_kernels_match_plain(dev, name):
-    # Counts within rtol 1e-4 of the plain version (the same masks, float32
-    # sums of up to N^2 products in another order); gradients rtol 1e-3,
-    # atol 1e-5 max|grad|, as chip_smoke.py phase 12.
+    # Counts and row sums within rtol 1e-4 of the plain version (the same
+    # masks, float32 sums of up to N^2 products in another order);
+    # gradients rtol 1e-3, atol 1e-5 max|grad|, as chip_smoke.py phase 12.
     from multigrad_tpu_torch.ops import pair_kernels as pk
     n1, n2, box, pimax, edges = PAIR_CASES[name]
     p1, w1 = _pair_inputs(dev, n1, box or 100.0, 1)
@@ -231,14 +231,18 @@ def test_pair_kernels_match_plain(dev, name):
                                                       box or 100.0, 2)
     esq = torch.tensor(edges, dtype=torch.float32, device=dev) ** 2
     g = torch.linspace(-1.0, 2.0, esq.shape[0] - 1, device=dev)
-    got = pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq, box, pimax)
-    want = pk.pair_counts_fwd_plain(p1, w1, p2, w2, esq, box, pimax)
+    got, rows = pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq, box, pimax,
+                                        rows=True)
+    want, rows_plain = pk.pair_counts_fwd_plain(p1, w1, p2, w2, esq, box,
+                                                pimax, rows=True)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4)
+    _assert_close(rows, rows_plain, rtol=1e-4)
     assert torch.equal(got, pk.pair_counts_fwd_cuda(p1, w1, p2, w2, esq,
                                                     box, pimax))
     dw1, dw2 = pk.pair_counts_bwd_plain(p1, w1, p2, w2, esq, g, box, pimax,
                                         autocorr=n2 is None)
+    _assert_close(pk.pair_rowgrad_cuda(rows, g), dw1)
     _assert_close(pk.pair_counts_bwd_cuda(p1, p2, w2, esq, g, box, pimax),
                   dw1)
     if n2 is not None:
@@ -249,24 +253,59 @@ def test_pair_kernels_match_plain(dev, name):
         assert float(got[0]) >= float((w1 * w1).sum())
 
 
+@pytest.mark.parametrize("box", [250.0, 77.7])
+def test_pair_rows_with_unit_weights_equal_plain(dev, box):
+    # Integer row sums below 2^24: equal only if every mask agrees.
+    from multigrad_tpu_torch.ops import pair_kernels as pk
+    p, _ = _pair_inputs(dev, 20_003, box, 5)
+    ones = torch.ones(p.shape[0], device=dev)
+    esq = torch.tensor(np.logspace(-0.5, 1.2, 9), dtype=torch.float32,
+                       device=dev) ** 2
+    _, rows = pk.pair_counts_fwd_cuda(p, ones, p, ones, esq, box, 20.0,
+                                      rows=True)
+    _, rows_plain = pk.pair_counts_fwd_plain(p, ones, p, ones, esq, box,
+                                             20.0, rows=True)
+    assert float(rows.sum()) > 0
+    assert torch.equal(rows, rows_plain)
+
+
+def test_pair_positions_outside_the_box(dev):
+    # Positions outside [0, box] take the kernels' division branch.
+    from multigrad_tpu_torch.ops import pair_kernels as pk
+    rng = np.random.default_rng(6)
+    pos = torch.tensor(rng.uniform(-60.0, 160.0, size=(20_003, 3))
+                       .astype(np.float32), device=dev)
+    w = torch.tensor(rng.uniform(0.2, 1.0, size=20_003).astype(np.float32),
+                     device=dev)
+    esq = torch.tensor(np.logspace(-0.3, 1.1, 8), dtype=torch.float32,
+                       device=dev) ** 2
+    got = pk.pair_counts_fwd_cuda(pos, w, pos, w, esq, 100.0, None)
+    want = pk.pair_counts_fwd_plain(pos, w, pos, w, esq, 100.0, None)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4)
+
+
 def test_pair_counts_autograd_launches(dev):
+    # An autocorrelation's backward reads the forward's row sums (one
+    # pair_rowgrad launch, no sweep); a cross-correlation's sweeps the pairs
+    # once more, for dw2.
     from multigrad_tpu_torch.ops import pair_kernels as pk
     p1, w1 = _pair_inputs(dev, 5_000, 100.0, 3)
     p2, w2 = _pair_inputs(dev, 4_000, 100.0, 4)
     edges = torch.tensor(np.logspace(-0.5, 1.2, 9), dtype=torch.float32,
                          device=dev)
-    for autocorr, n_bwd in ((True, 1), (False, 2)):
+    wrappers = (pk.pair_counts_fwd_cuda, pk.pair_rowgrad_cuda,
+                pk.pair_counts_bwd_cuda)
+    for autocorr, n_sweeps in ((True, 0), (False, 1)):
         a = w1.clone().requires_grad_()
         b = a if autocorr else w2.clone().requires_grad_()
-        before = (pk.pair_counts_fwd_cuda.launches,
-                  pk.pair_counts_bwd_cuda.launches)
+        before = [fn.launches for fn in wrappers]
         counts = pk.pair_counts(p1, a, p1 if autocorr else p2, b, edges,
                                 box_size=100.0, pimax=20.0)
         counts.sum().backward()
         torch.cuda.synchronize()
-        assert (pk.pair_counts_fwd_cuda.launches,
-                pk.pair_counts_bwd_cuda.launches) == (before[0] + 1,
-                                                      before[1] + n_bwd)
+        assert [fn.launches - n for fn, n in zip(wrappers, before)] == [
+            1, 1, n_sweeps]
         assert torch.isfinite(a.grad).all()
 
 

@@ -20,6 +20,7 @@ def _python_files():
                 yield os.path.join(root, name)
     yield os.path.join(REPO_ROOT, "chip_smoke.py")
     yield os.path.join(REPO_ROOT, "tools", "hist_card_vs_cpu.py")
+    yield os.path.join(REPO_ROOT, "tools", "pair_kernels_ab.py")
 
 
 def _imported_roots(path):
