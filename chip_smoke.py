@@ -10,13 +10,18 @@ order:
 2. build: ``nvcc`` of every ``csrc/*.cu`` for ``sm_90a``, all at once;
 3. the dense scalar-sigma kernels against their plain PyTorch versions on
    the card, at N = 1,000,003 (a ragged tail, 1,000 of them ``+inf``) and
-   at the SMF path's N = 1e8, with their median times;
+   at the SMF path's N = 1e8: the counts and all three gradients (scaled
+   inside the kernel), every output bit-identical on repeat, and one
+   kernel launch a wrapper call in a profiler window; their median times;
 4. golden: an SMF model at 10,000 halos reproduces ``TARGET_SUMSTATS``;
 5. the SMF path: ``SMFModel(make_smf_data(1e8)).run_adam`` for 20 steps,
-   with each kernel's launch count over exactly that run;
+   with each kernel's launch count over exactly that run; a profiler
+   window of 5 steps holds one forward and one backward erf kernel a
+   step, no ``sum_rows_kernel`` and no N-wide multiply;
 6. recovery: at 1e6 halos, 300 Adam steps recover the truth (-2.0, 0.2);
 7. the dense per-particle-sigma kernels against their plain versions at
-   N = 1,000,003, timed at the history path's launch shape (1e6
+   N = 1,000,003 (as in phase 3: all outputs, bit-identical on repeat,
+   one launch a call), timed at the history path's launch shape (1e6
    particles, 14 edges) and at 1e8;
 8. the fused kernels (scalar and per-particle sigma) against their plain
    versions at N = 1,000,003 with 41 edges and a 33-edge window, fused
@@ -254,6 +259,23 @@ def main():
             times.append(start.elapsed_time(stop))
         return statistics.median(times)
 
+    def one_launch(label, fn, stem, calls=3):
+        """A profiler window over ``calls`` calls of a dense erf wrapper
+        holds ``calls`` launches of its one kernel and no other kernel (no
+        ``sum_rows_kernel``, no PyTorch op).  Tried twice, in case the
+        profiler drops an event."""
+        fn()
+        torch.cuda.synchronize()
+        for attempt in (1, 2):
+            by_name, _ = device_times(lambda: [fn() for _ in range(calls)])
+            seen = {name: c for name, (_, c) in by_name.items()}
+            if len(seen) == 1 and stem in next(iter(seen)) and \
+                    next(iter(seen.values())) == calls:
+                return
+            log(f"{label}: profiler window {attempt} of {calls} calls saw "
+                f"{seen}")
+        check(False, f"{label}: not one {stem} launch a call: {seen}")
+
     def compare_kernels(values, sigma, label, timed):
         edges = torch.linspace(9, 10, 11, dtype=torch.float32, device=dev)
         s = torch.tensor(sigma, dtype=torch.float32, device=dev)
@@ -269,6 +291,9 @@ def main():
         check(torch.equal(fwd, ek.erf_counts_fwd_cuda(values, edges, s1)),
               f"{label}: forward not deterministic")
         bwd = ek.erf_counts_bwd_cuda(values, edges, s1, g)
+        check(all(torch.equal(a, b) for a, b in zip(
+            bwd, ek.erf_counts_bwd_cuda(values, edges, s1, g))),
+            f"{label}: backward not deterministic")
         bwd_plain = ek.erf_counts_bwd_plain(values, edges, s, g,
                                             PLAIN_CHUNK)
         torch.cuda.synchronize()
@@ -283,8 +308,13 @@ def main():
                   f"{excess} beyond rtol 1e-3, atol {1e-5 * scale}")
             bwd_err = max(bwd_err, float((a - b).abs().max()))
         log(f"{label}: forward max|err| {fwd_err:.3e} (tol {fwd_tol:.3e}), "
-            f"backward max|err| {bwd_err:.3e}")
+            f"backward max|err| {bwd_err:.3e} (dvalues, dedges, dsigma "
+            "scaled in the kernel); every output bit-identical on repeat")
         out = dict(fwd_err=fwd_err, bwd_err=bwd_err)
+        one_launch(f"{label} forward", lambda: ek.erf_counts_fwd_cuda(
+            values, edges, s1), "erf_fwd_kernel")
+        one_launch(f"{label} backward", lambda: ek.erf_counts_bwd_cuda(
+            values, edges, s1, g), "erf_bwd_kernel")
         if timed:
             out["fwd_ms"] = time_ms(
                 lambda: ek.erf_counts_fwd_cuda(values, edges, s1), 20)
@@ -372,6 +402,19 @@ def main():
         f"{traj[-1].tolist()}")
     check(loss_20 < loss_0, "the loss did not decrease")
     smf_profile = profile_steps(model, 5)
+    # One erf kernel a call: neither sum_rows_kernel nor an N-wide
+    # multiply (the old dv scaling, ~0.24 ms a step at 1e8) in the window.
+    smf_seen = {name: c for name, (_, c) in smf_profile.items()}
+    check(not any("sum_rows_kernel" in name for name in smf_seen),
+          f"sum_rows_kernel on the SMF path: {smf_seen}")
+    for stem in ("erf_fwd_kernel", "erf_bwd_kernel"):
+        launched = sum(c for name, c in smf_seen.items() if stem in name)
+        check(launched == 5, f"{launched} {stem} launches in 5 SMF steps")
+    wide_mul = {name: us / c for name, (us, c) in smf_profile.items()
+                if "Mul" in name and us / c > 50.0}
+    check(not wide_mul, f"N-wide multiplies on the SMF path: {wide_mul}")
+    log("SMF profile: one erf_fwd_kernel and one erf_bwd_kernel a step, "
+        "no sum_rows_kernel, no N-wide multiply")
     del model, aux, traj
 
     # 6. recovery at 1e6 halos -----------------------------------------
@@ -425,13 +468,25 @@ def main():
         check(torch.equal(fwd, ek.erf_counts_fwd_vec_cuda(v, hist_edges,
                                                           sig)),
               f"{label}: vec forward not deterministic")
+        bwd = ek.erf_counts_bwd_vec_cuda(v, hist_edges, sig, hcot)
+        check(all(torch.equal(a, b) for a, b in zip(
+            bwd, ek.erf_counts_bwd_vec_cuda(v, hist_edges, sig, hcot))),
+            f"{label}: vec backward not deterministic")
         bwd_err = grads_close(
-            f"{label} vec", ek.erf_counts_bwd_vec_cuda(v, hist_edges, sig,
-                                                      hcot),
+            f"{label} vec", bwd,
             ek.erf_counts_bwd_plain(v, hist_edges, sig, hcot, PLAIN_CHUNK))
+        del bwd
         log(f"{label}: vec forward max|err| {fwd_err:.3e} (tol "
-            f"{fwd_tol:.3e}), backward max|err| {bwd_err:.3e}")
+            f"{fwd_tol:.3e}), backward max|err| {bwd_err:.3e} (dvalues, "
+            "dedges, dsigma scaled in the kernel); every output "
+            "bit-identical on repeat")
         out = dict(fwd_err=fwd_err, bwd_err=bwd_err)
+        one_launch(f"{label} vec forward", lambda: ek.erf_counts_fwd_vec_cuda(
+            v, hist_edges, sig), "erf_fwd_kernel")
+        one_launch(f"{label} vec backward",
+                   lambda: ek.erf_counts_bwd_vec_cuda(v, hist_edges, sig,
+                                                      hcot),
+                   "erf_bwd_kernel")
         if timed:
             out["fwd_ms"] = time_ms(
                 lambda: ek.erf_counts_fwd_vec_cuda(v, hist_edges, sig), 20)

@@ -21,6 +21,9 @@ On a CUDA tensor the hand-written kernels of ``csrc/erf_counts.cu`` run
 see :mod:`.cuda_build`); on a CPU tensor the plain PyTorch versions
 (:func:`erf_counts_fwd_plain`, :func:`erf_counts_bwd_plain`) run.  The
 tensor's device decides; there is no fallback from one to the other.
+A CUDA call is one kernel launch: the backward forms ``h`` from ``g``
+and applies every factor above inside the kernel, and the blocks'
+partial sums are added up by the last block to finish.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``erf_counts_fwd_cuda.launches`` and ``erf_counts_bwd_cuda.launches``
@@ -190,19 +193,57 @@ def _scale_vec_grads(dv_raw, rows, hz, h, sigma):
 # --------------------------------------------------------------------------
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "erf_counts_fwd": [_P, _I64, _P, _I32, _P, _I32, _P, _I32, _P, _P],
-    "erf_counts_bwd": [_P, _I64, _P, _I32, _P, _I32, _P, _P, _P, _P, _I32,
-                       _P, _P],
+    "erf_counts_fwd": [_P, _I64, _P, _I32, _P, _I32, _P, _P, _I32, _P, _P],
+    "erf_counts_bwd": [_P, _I64, _P, _I32, _P, _I32, _P, _P, _P, _P, _P, _P,
+                       _I32, _P],
 }
+
+#: Particles a kernel thread takes per step (``kPer`` in the source).
+PER_THREAD = 4
+_THREADS = 256          # = erfk::kThreads (csrc/erf_common.cuh)
+#: Steps of the grid-stride loop a thread takes at least, and blocks an
+#: SM runs at most (see :func:`erf_grid`).
+_MIN_STEPS = 4
+_MAX_BLOCKS_PER_SM = 16
+
+# (device, stream) -> (SMs, ticket counters (2,) int32, partials).
+_WORKSPACES: dict = {}
 
 
 def _lib():
     return cuda_build.load(SOURCE, _SIGNATURES)
 
 
-def _check_cuda_args(values, edges, sigma, vec):
+def erf_grid(n: int, sms: int) -> int:
+    """Blocks for ``n`` particles on ``sms`` SMs: enough that every thread
+    takes ``_MIN_STEPS`` steps of ``PER_THREAD`` particles, at most
+    ``_MAX_BLOCKS_PER_SM`` an SM (the grid-stride loop takes the rest).
+    Measured on an H100 at the history's 1e6-particle launch and the
+    SMF's 1e8 (``tools/erf_kernels_ab.py``'s sweep, ``PERF.md`` §6)."""
+    steps = _MIN_STEPS * PER_THREAD * _THREADS
+    return max(1, min(-(-n // steps), sms * _MAX_BLOCKS_PER_SM))
+
+
+def _workspace(device, stream):
+    """The SM count and the scratch of the kernels on ``stream``: their
+    ticket counters (one each, zeroed once here; the last block of every
+    launch puts its counter back to 0) and the blocks' partial rows."""
+    key = (device, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        ws = _WORKSPACES[key] = (
+            sms, torch.zeros(2, dtype=torch.int32, device=device),
+            torch.empty(sms * _MAX_BLOCKS_PER_SM * (MAX_EDGES + 1),
+                        dtype=torch.float32, device=device))
+    return ws
+
+
+def _check_cuda_args(values, edges, sigma, vec, g=None):
     for name, t in (("values", values), ("bin_edges", edges),
-                    ("sigma", sigma)):
+                    ("sigma", sigma), ("g", g)):
+        if t is None:
+            continue
         if t.device != values.device or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {values.device}, "
                              f"got {t.dtype} on {t.device}")
@@ -215,48 +256,46 @@ def _check_cuda_args(values, edges, sigma, vec):
         raise ValueError("a scalar sigma must be a one-element tensor")
     if not 2 <= edges.shape[0] <= MAX_EDGES:
         raise ValueError(f"between 2 and {MAX_EDGES} bin edges supported")
+    if g is not None and g.shape != (edges.shape[0] - 1,):
+        raise ValueError(f"the cotangent must have shape "
+                         f"({edges.shape[0] - 1},), got {tuple(g.shape)}")
 
 
 def _launch_fwd(values, edges, sigma, vec):
     _check_cuda_args(values, edges, sigma, vec)
     lib = _lib()
-    n, n_edges = values.shape[0], edges.shape[0]
-    with torch.cuda.device(values.device):
-        grid = cuda_build.grid(n, values.device)
-        partials = torch.empty((grid, n_edges - 1), dtype=torch.float32,
-                               device=values.device)
-        counts = torch.empty(n_edges - 1, dtype=torch.float32,
-                             device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        code = lib.erf_counts_fwd(values.data_ptr(), n, edges.data_ptr(),
-                                  n_edges, sigma.data_ptr(), int(vec),
-                                  partials.data_ptr(), grid,
-                                  counts.data_ptr(), stream)
+    n, n_edges, device = values.shape[0], edges.shape[0], values.device
+    counts = torch.empty(n_edges - 1, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        sms, counters, partials = _workspace(device, stream)
+        code = lib.erf_counts_fwd(
+            values.data_ptr(), n, edges.data_ptr(), n_edges,
+            sigma.data_ptr(), int(vec), partials.data_ptr(),
+            counters.data_ptr(), erf_grid(n, sms), counts.data_ptr(), stream)
     cuda_build.raise_on(code, "erf_counts_fwd")
     return counts
 
 
-def _launch_bwd(values, edges, sigma, h, vec):
-    _check_cuda_args(values, edges, sigma, vec)
+def _launch_bwd(values, edges, sigma, g, vec):
+    _check_cuda_args(values, edges, sigma, vec, g)
     lib = _lib()
-    n, n_edges = values.shape[0], edges.shape[0]
-    cols = n_edges if vec else n_edges + 1
-    with torch.cuda.device(values.device):
-        grid = cuda_build.grid(n, values.device)
-        dv = torch.empty_like(values)
-        ds = torch.empty_like(values) if vec else None
-        partials = torch.empty((grid, cols), dtype=torch.float32,
-                               device=values.device)
-        sums = torch.empty(cols, dtype=torch.float32, device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        code = lib.erf_counts_bwd(values.data_ptr(), n, edges.data_ptr(),
-                                  n_edges, sigma.data_ptr(), int(vec),
-                                  h.data_ptr(), dv.data_ptr(),
-                                  None if ds is None else ds.data_ptr(),
-                                  partials.data_ptr(), grid,
-                                  sums.data_ptr(), stream)
+    n, n_edges, device = values.shape[0], edges.shape[0], values.device
+    dv = torch.empty_like(values)
+    de = torch.empty_like(edges)
+    ds = torch.empty_like(values) if vec else torch.empty(
+        (), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        sms, counters, partials = _workspace(device, stream)
+        code = lib.erf_counts_bwd(
+            values.data_ptr(), n, edges.data_ptr(), n_edges,
+            sigma.data_ptr(), int(vec), g.data_ptr(), dv.data_ptr(),
+            de.data_ptr(), ds.data_ptr(), partials.data_ptr(),
+            counters.data_ptr() + 4,  # the second int32: the backward's
+            erf_grid(n, sms), stream)
     cuda_build.raise_on(code, "erf_counts_bwd")
-    return dv, ds, sums
+    return dv, de, ds
 
 
 def erf_counts_fwd_cuda(values, edges, sigma):
@@ -277,22 +316,19 @@ def erf_counts_fwd_vec_cuda(values, edges, sigma):
 
 def erf_counts_bwd_cuda(values, edges, sigma, g):
     """``(dvalues, dedges, dsigma)`` by the CUDA kernel, scalar sigma, for
-    the cotangent ``g`` ``(E-1,)`` of the counts."""
-    h = _h_from_g(g.to(torch.float32)).contiguous()
-    dv_raw, _, sums = _launch_bwd(values, edges, sigma, h, vec=False)
+    the float32 cotangent ``g`` ``(E-1,)`` of the counts; the kernel
+    scales all three (``dsigma`` 0-d)."""
+    grads = _launch_bwd(values, edges, sigma, g, vec=False)
     erf_counts_bwd_cuda.launches += 1
-    n_edges = edges.shape[0]
-    return _scale_grads(dv_raw, sums[:n_edges], sums[n_edges], h,
-                        sigma.reshape(()))
+    return grads
 
 
 def erf_counts_bwd_vec_cuda(values, edges, sigma, g):
     """``(dvalues, dedges, dsigma)`` by the CUDA kernel, per-particle
-    sigma; ``dvalues`` and ``dsigma`` come scaled from the kernel."""
-    h = _h_from_g(g.to(torch.float32)).contiguous()
-    dv, ds, rows = _launch_bwd(values, edges, sigma, h, vec=True)
+    sigma, all three scaled by the kernel."""
+    grads = _launch_bwd(values, edges, sigma, g, vec=True)
     erf_counts_bwd_vec_cuda.launches += 1
-    return dv, _INV_SQRT_PI * h * rows, ds
+    return grads
 
 
 erf_counts_fwd_cuda.launches = 0

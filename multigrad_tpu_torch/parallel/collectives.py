@@ -30,14 +30,21 @@ def reduce_sum(value, root: Optional[int] = None,
 
     The result is valid on every process (an all-reduce, a superset of
     the reference's reduce-to-root).  Python scalars come back as
-    Python scalars.  ``comm=None`` is the single-process identity.
+    Python scalars, tensors on the device they came from: under NCCL,
+    which reduces only CUDA tensors, a host value goes through the
+    current CUDA device.  ``comm=None`` is the single-process identity.
     """
     del root
     if comm is None:
         return value
     is_py_scalar = isinstance(value, (bool, int, float))
-    out = comm.psum(torch.as_tensor(value))
-    return out.item() if is_py_scalar else out
+    tensor = torch.as_tensor(value)
+    home = tensor.device
+    if (home.type == "cpu" and comm.distributed
+            and dist.get_backend(comm.group) == "nccl"):
+        tensor = tensor.to(torch.device("cuda", torch.cuda.current_device()))
+    out = comm.psum(tensor)
+    return out.item() if is_py_scalar else out.to(home)
 
 
 def scatter_nd(array, axis: int = 0, comm: Optional[MeshComm] = None,

@@ -6,6 +6,7 @@ from typing import NamedTuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.stats import qmc
 
 try:
@@ -32,10 +33,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 def trange(n, desc=None, progress=True):
-    """``tqdm.trange`` when progress is wanted and tqdm is installed."""
-    if progress and tqdm is not None:
+    """``tqdm.trange`` when progress is wanted, tqdm is installed and this
+    is process 0 (or ``torch.distributed`` is not initialised): the
+    reference shows its bars on process 0 only."""
+    if progress and tqdm is not None and _is_process_zero():
         return tqdm.trange(n, desc=desc, leave=True)
     return range(n)
+
+
+def _is_process_zero() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 class GradDescentResult(NamedTuple):

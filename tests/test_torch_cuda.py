@@ -128,6 +128,49 @@ def test_vec_sigma_kernels_match_plain(dev):
     assert float(got[0][-1]) == 0.0 and float(got[2][-1]) == 0.0
 
 
+def _dense_case(v, e, s, g):
+    """The dense kernels against their plain versions, and every output
+    the same bit for bit on a second call."""
+    vec = s.dim() > 0
+    fwd_k = ek.erf_counts_fwd_vec_cuda if vec else ek.erf_counts_fwd_cuda
+    bwd_k = ek.erf_counts_bwd_vec_cuda if vec else ek.erf_counts_bwd_cuda
+    s_k = s if vec else s.reshape(1)
+    fwd = fwd_k(v, e, s_k)
+    want = ek.erf_counts_fwd_plain(v, e, s)
+    assert fwd.shape == want.shape
+    assert float((fwd - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert torch.equal(fwd, fwd_k(v, e, s_k))
+    got = bwd_k(v, e, s_k, g)
+    again = bwd_k(v, e, s_k, g)
+    for a, b, c in zip(got, ek.erf_counts_bwd_plain(v, e, s, g), again):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        _assert_close(a, b)
+        assert torch.equal(a, c)
+    return got
+
+
+@pytest.mark.parametrize("n_edges", [2, 11, 14, 16, 17, 41])
+@pytest.mark.parametrize("vec", [False, True])
+def test_dense_kernels_every_edge_count(dev, vec, n_edges):
+    # Exact-edge instances (2..16) and the capped ones (17, 41), a ragged
+    # N with +inf padding, a scalar or a per-particle sigma.
+    v, e, s, g = _vec_inputs(dev, n_edges=n_edges, seed=n_edges)
+    s = s if vec else s[0].clone()
+    dv, _, ds = _dense_case(v, e, s, g)
+    assert float(dv[-1]) == 0.0
+    if vec:
+        assert float(ds[-1]) == 0.0
+
+
+@pytest.mark.parametrize("vec", [False, True])
+def test_dense_kernels_unaligned_values(dev, vec):
+    # A view one float into its storage: the kernels' one-particle loop.
+    v, e, s, g = _vec_inputs(dev, n=50_001)
+    v, s = v[1:], (s[1:] if vec else s[0].clone())
+    assert v.data_ptr() % 16 != 0
+    _dense_case(v, e, s, g)
+
+
 @pytest.mark.parametrize("vec", [False, True])
 def test_fused_kernels_match_plain(dev, vec):
     v, e, s, _ = _vec_inputs(dev, n_edges=41)

@@ -268,3 +268,13 @@ def test_autograd_function_matches_finite_differences():
         _t(vals), _t(EDGES), torch.tensor(sig)) * _t(COT)).sum()))
     fd = (f(0.3 + eps) - f(0.3 - eps)) / (2 * eps)
     np.testing.assert_allclose(float(s.grad), fd, rtol=1e-2)
+
+
+def test_erf_grid_rule():
+    # The CUDA kernels' grid (ops/erf_kernels.py::erf_grid): every thread
+    # takes at least four steps of four particles, at most 16 blocks an SM.
+    from multigrad_tpu_torch.ops.erf_kernels import erf_grid
+    assert erf_grid(1, 132) == 1
+    assert erf_grid(4096, 132) == 1 and erf_grid(4097, 132) == 2
+    assert erf_grid(1_000_000, 132) == 245
+    assert erf_grid(100_000_000, 132) == 132 * 16
