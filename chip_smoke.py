@@ -23,23 +23,34 @@ order:
    N = 1,000,003 (as in phase 3: all outputs, bit-identical on repeat,
    one launch a call), timed at the history path's launch shape (1e6
    particles, 14 edges) and at 1e8;
-8. the fused kernels (scalar and per-particle sigma) against their plain
-   versions at N = 1,000,003 with 41 edges and a 33-edge window, fused
-   counts against dense counts, timed at 1e6 and at 1e8;
+8. the fused kernels (one launch each way: the window start, the masses
+   and their scatter into bins, or the cotangent's gather and every
+   gradient, inside the kernel) against their plain versions, scalar and
+   per-particle sigma, at N = 1,000,003 with 41 edges and a 33-edge
+   window and at N = 100,003 with 16,384 edges and a 128-edge window:
+   counts, dvalues, dedges and dsigma, every output bit-identical on
+   repeat, one kernel a call of ``erf_counts_fused`` forward and
+   backward in a profiler window; fused counts against dense counts;
+   timed at 1e6 and 1e8 with the history path's per-particle sigma, with
+   the wrapper and on the device;
 9. the history model on the card against the same model on the CPU
    (the plain versions), fed the card's mean log M* and whole, at 1e6
    halos, dense and fused;
 10. the history path, dense: ``GalhaloHistModel(make_galhalo_hist_data(
     1e8, chunk_size=1e6)).run_adam`` for 20 steps, launches counted;
 11. the history path, fused: the same with 41 edges, six epochs and
-    ``bin_mode="fused"``, launches counted;
+    ``bin_mode="fused"``, launches counted; its profiled step runs no
+    index, scatter, gather or search kernel beyond the dense step's;
 12. the pair-count kernels against their plain versions at N = 100,003
     (projected with a box, 3D with and without a box, an asymmetric pair
     of blocks, edges from 0): the forward's counts and row sums (equal to
     the plain ones with unit weights), bit-identical on repeat, the row
     gradient from them and the pair sweep; an asymmetric pair through
     autograd, launches counted (the only path that sweeps); the three
-    kernels timed at 1e5 and 1e6 halos;
+    kernels timed at 1e5 and 1e6 halos; ``pair_rowgrad`` against
+    ``torch.matmul(g, R)`` like for like (device ms from the profiler,
+    ms with the call from CUDA events) and the host time of each piece
+    of the wrappers' call path;
 13. the wp(rp) model at 8,192 halos: loss at TRUTH, one loss and gradient
     on the card against the same model on the CPU, 150 Adam steps recover
     TRUTH; one loss and gradient of the xi(r) model;
@@ -60,6 +71,7 @@ It imports torch, numpy, the port and ``tools/hist_card_vs_cpu.py``
 plain versions are masked matrix-vector products.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -114,6 +126,7 @@ PAIR_BOX, PAIR_PIMAX = 250.0, 20.0
 PAIR_OPS, PAIR_OPS_PER_BIN, PAIR_ROW_OPS_PER_BIN = 19, 3, 2
 PAIR_PLAIN_ROWS = 512
 WPRP_GUESS = (-1.8, -0.8)
+MAX_EDGES_FUSED = 16_384
 
 
 def log(msg):
@@ -213,8 +226,8 @@ def main():
                 "erf_counts_bwd": ek.erf_counts_bwd_cuda,
                 "erf_counts_fwd_vec": ek.erf_counts_fwd_vec_cuda,
                 "erf_counts_bwd_vec": ek.erf_counts_bwd_vec_cuda,
-                "fused_masses_fwd": fk.fused_masses_fwd_cuda,
-                "fused_masses_bwd": fk.fused_masses_bwd_cuda,
+                "fused_counts_fwd": fk.fused_counts_fwd_cuda,
+                "fused_counts_bwd": fk.fused_counts_bwd_cuda,
                 "pair_counts_fwd": pk.pair_counts_fwd_cuda,
                 "pair_rowgrad": pk.pair_rowgrad_cuda,
                 "pair_counts_bwd": pk.pair_counts_bwd_cuda}
@@ -523,51 +536,76 @@ def main():
     check(window == 33, f"fused window {window} != 33")
     fcot = torch.randn(n_fused_edges - 1, generator=gen, device=dev)
 
-    def fused_case(v, sig, label, timed, compare=True):
-        """The fused kernels against their plain versions (``compare``)
-        and their median times (``timed``; the plain versions' too at the
-        launch shape)."""
-        start = tb.window_starts(torch.clamp(v, -ek.PAD_VALUE, ek.PAD_VALUE),
-                                 fused_edges, sig, window)
-        g = torch.randn(window - 1, v.shape[0], generator=gen, device=dev)
+    def fused_case(v, sig, label, timed, compare=True, edges=fused_edges,
+                   win=window, g=fcot):
+        """The fused kernels against their plain versions (``compare``:
+        counts within 2e-5·max|count|, dvalues, dedges and dsigma rtol
+        1e-3, atol 1e-5·max|grad|, every output bit-identical on repeat,
+        one kernel a call of ``erf_counts_fused`` forward and backward in
+        a profiler window) and their median times, with the wrapper (CUDA
+        events) and on the device (profiler) (``timed``; the plain
+        versions' too with ``compare``)."""
         out = {}
         if compare:
-            masses = fk.fused_masses_fwd_cuda(v, fused_edges, sig, start,
-                                              window)
-            plain = fk.fused_masses_fwd_plain(v, fused_edges, sig, start,
-                                              window)
+            fwd = fk.fused_counts_fwd_cuda(v, edges, sig, win)
+            plain = fk.fused_counts_fwd_plain(v, edges, sig, win)
             torch.cuda.synchronize()
-            # Same float32 operations in the same order: equal to 1e-6.
-            out["fwd_err"] = float((masses - plain).abs().max())
-            check(out["fwd_err"] <= 1e-6,
-                  f"{label}: fused forward error {out['fwd_err']}")
-            check(torch.equal(masses, fk.fused_masses_fwd_cuda(
-                v, fused_edges, sig, start, window)),
-                f"{label}: fused forward not deterministic")
-            del masses, plain
+            out["fwd_err"] = float((fwd - plain).abs().max())
+            fwd_tol = 2e-5 * float(plain.abs().max())
+            check(out["fwd_err"] <= fwd_tol, f"{label}: fused forward error "
+                  f"{out['fwd_err']} > {fwd_tol}")
+            check(torch.equal(fwd, fk.fused_counts_fwd_cuda(v, edges, sig,
+                                                            win)),
+                  f"{label}: fused forward not deterministic")
+            del plain
+            bwd = fk.fused_counts_bwd_cuda(v, edges, sig, win, g, True)
+            check(all(torch.equal(a, b) for a, b in zip(
+                bwd, fk.fused_counts_bwd_cuda(v, edges, sig, win, g, True))),
+                f"{label}: fused backward not deterministic")
             out["bwd_err"] = grads_close(
-                f"{label} fused", fk.fused_masses_bwd_cuda(
-                    v, fused_edges, sig, start, window, g, True),
-                fk.fused_masses_bwd_plain(v, fused_edges, sig, start, window,
-                                          g, True))
-            log(f"{label}: fused forward max|err| {out['fwd_err']:.3e}, "
-                f"backward max|err| {out['bwd_err']:.3e}")
+                f"{label} fused", bwd,
+                fk.fused_counts_bwd_plain(v, edges, sig, win, g, True))
+            del bwd
+            log(f"{label}: fused forward max|err| {out['fwd_err']:.3e} (tol "
+                f"{fwd_tol:.3e}), backward max|err| {out['bwd_err']:.3e} "
+                "(dvalues, dedges, dsigma); every output bit-identical on "
+                "repeat")
+            # Through the entry point and autograd: one kernel each way.
+            vg, sg = v.clone().requires_grad_(), sig.clone().requires_grad_()
+            one_launch(f"{label} erf_counts_fused forward",
+                       lambda: fk.erf_counts_fused(vg, edges, sg, win),
+                       "fused_counts_fwd_kernel")
+            counts = fk.erf_counts_fused(vg, edges, sg, win)
+            one_launch(f"{label} erf_counts_fused backward",
+                       lambda: torch.autograd.grad(counts, (vg, sg), g,
+                                                   retain_graph=True),
+                       "fused_counts_bwd_kernel")
+            del vg, sg, counts
         if timed:
-            out["fwd_ms"] = time_ms(lambda: fk.fused_masses_fwd_cuda(
-                v, fused_edges, sig, start, window), 20)
-            out["bwd_ms"] = time_ms(lambda: fk.fused_masses_bwd_cuda(
-                v, fused_edges, sig, start, window, g), 20)
+            out["fwd_ms"] = time_ms(lambda: fk.fused_counts_fwd_cuda(
+                v, edges, sig, win), 20)
+            out["bwd_ms"] = time_ms(lambda: fk.fused_counts_bwd_cuda(
+                v, edges, sig, win, g), 20)
+            by_name, _ = device_times(lambda: [
+                (fk.fused_counts_fwd_cuda(v, edges, sig, win),
+                 fk.fused_counts_bwd_cuda(v, edges, sig, win, g))
+                for _ in range(10)])
+            out["fwd_device_ms"] = kernel_device_ms(
+                by_name, "fused_counts_fwd_kernel")
+            out["bwd_device_ms"] = kernel_device_ms(
+                by_name, "fused_counts_bwd_kernel")
             if compare:
                 out["fwd_plain_ms"] = time_ms(
-                    lambda: fk.fused_masses_fwd_plain(
-                        v, fused_edges, sig, start, window), 5, 1)
+                    lambda: fk.fused_counts_fwd_plain(v, edges, sig, win),
+                    5, 1)
                 out["bwd_plain_ms"] = time_ms(
-                    lambda: fk.fused_masses_bwd_plain(
-                        v, fused_edges, sig, start, window, g), 5, 1)
-            log(f"{label}: fused forward {out['fwd_ms']:.4f} ms (plain "
+                    lambda: fk.fused_counts_bwd_plain(v, edges, sig, win, g),
+                    5, 1)
+            log(f"{label}: fused forward {out['fwd_ms']:.4f} ms with the "
+                f"wrapper, {out['fwd_device_ms']} device ms (plain "
                 f"{out.get('fwd_plain_ms', float('nan')):.3f} ms), backward "
-                f"{out['bwd_ms']:.4f} ms (plain "
-                f"{out.get('bwd_plain_ms', float('nan')):.3f} ms)")
+                f"{out['bwd_ms']:.4f} ms, {out['bwd_device_ms']} device ms "
+                f"(plain {out.get('bwd_plain_ms', float('nan')):.3f} ms)")
         return out
 
     v, sig = hist_inputs(RAGGED_HALOS)
@@ -588,8 +626,23 @@ def main():
     fused_1e6 = fused_case(v[:HIST_CHUNK].clone(), sig[:HIST_CHUNK].clone(),
                            f"N={HIST_CHUNK:,} vec", timed=True)
     del v, sig
+    # The largest edge count the kernels take (per-warp rows), at widths
+    # a 128-edge window covers; 100,003 halos keep the plain dedges'
+    # (W, runs x E) scatter rows at 2.6 GB.
+    big_edges = torch.linspace(FUSED_EDGES[0], FUSED_EDGES[1], MAX_EDGES_FUSED,
+                               device=dev)
+    big_cot = torch.randn(MAX_EDGES_FUSED - 1, generator=gen, device=dev)
+    v, sig = hist_inputs(PAIR_RAGGED)
+    v[-N_INF:] = float("inf")
+    sig = 0.0005 + sig * (0.0025 / 0.4)
+    for s_label, s in (("scalar", sig[0].clone()), ("vec", sig)):
+        fused_case(v, s, f"N={PAIR_RAGGED:,} E={MAX_EDGES_FUSED:,} W=128 "
+                   f"{s_label}", timed=False, edges=big_edges, win=128,
+                   g=big_cot)
+    del v, sig, big_edges, big_cot
     v, sig = hist_inputs(BIG_HALOS)
-    # At 1e8 the masses are 12.8 GB: time the kernels only.
+    # At 1e8 the plain versions' (W-1, N) masses are 12.8 GB: time the
+    # kernels only, with the history path's per-particle sigma.
     fused_1e8 = fused_case(v, sig * (FUSED_SIGMA_MAX / 0.4),
                            f"N={BIG_HALOS:,} vec", timed=True, compare=False)
     del v, sig
@@ -692,10 +745,30 @@ def main():
          "erf_counts_bwd_vec": HIST_STEPS * chunks * 3})
     fused_launches, fused_sps, fused_profile = hist_path(
         "fused", fused_kwargs, HIST_STEPS,
-        {"fused_masses_fwd": HIST_STEPS * chunks * len(FUSED_OBS) * 2,
-         "fused_masses_bwd": HIST_STEPS * chunks * len(FUSED_OBS)})
+        {"fused_counts_fwd": HIST_STEPS * chunks * len(FUSED_OBS) * 2,
+         "fused_counts_bwd": HIST_STEPS * chunks * len(FUSED_OBS)})
     log(f"[{time.perf_counter() - t_start:.0f} s] history path: "
         f"{dense_sps:.4f} steps/s dense, {fused_sps:.4f} steps/s fused")
+    # The fused step's window start, scatter and gather run inside the
+    # two kernels: none of PyTorch's search, index or scatter kernels (nor
+    # sum_rows_kernel) appear in its profile beyond those the dense step
+    # runs too.
+    scatter_like = ("index", "scatter", "gather", "searchsorted",
+                    "sum_rows_kernel")
+
+    def scatter_kernels(by_name):
+        return {name for name in by_name
+                if any(word in name for word in scatter_like)}
+
+    extra = scatter_kernels(fused_profile) - scatter_kernels(dense_profile)
+    check(not extra, f"the fused step runs scatter or search kernels: {extra}")
+    seen = {stem: sum(c for name, (_, c) in fused_profile.items()
+                      if stem in name)
+            for stem in ("fused_counts_fwd_kernel", "fused_counts_bwd_kernel")}
+    log(f"fused history profile of one step: {seen} launches (counted "
+        f"above: {chunks * len(FUSED_OBS) * 2} and {chunks * len(FUSED_OBS)} "
+        "a step); no index, scatter, gather or search kernel beyond the "
+        f"dense step's ({sorted(scatter_kernels(dense_profile)) or 'none'})")
 
     # 12. pair-count kernels against their plain versions ---------------
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 12")
@@ -849,6 +922,69 @@ def main():
     pair_1e5 = pair_times(PAIR_HALOS, 20, plain=True) | {
         "fwd_err": wp_case["fwd_err"], "rowgrad_err": wp_case["rowgrad_err"],
         "bwd_err": cross["bwd_err"]}
+
+    def rowgrad_like_for_like(n):
+        """Kernel 6r against ``torch.matmul(g, R)`` on the same inputs:
+        device ms a call (every kernel of a 50-call profiler window), and
+        the host microseconds a call of each piece of the wrapper's call
+        path (2,000 calls, host clock, before a synchronize)."""
+        p, wt = mock(n, PAIR_BOX, 15)
+        esq = (wp_edges * wp_edges).contiguous()
+        g = torch.linspace(-1.0, 2.0, 8, device=dev)
+        _, rows = pk.pair_counts_fwd_cuda(p, wt, p, wt, esq, PAIR_BOX,
+                                          PAIR_PIMAX, rows=True)
+        device = rows.device
+        out = {}
+        for key, fn in (("rowgrad", lambda: pk.pair_rowgrad_cuda(rows, g)),
+                        ("matmul", lambda: torch.matmul(g, rows))):
+            fn()
+            by_name, _ = device_times(lambda: [fn() for _ in range(50)])
+            out[f"{key}_device_ms"] = (sum(us for us, _ in by_name.values())
+                                       / 50 / 1e3 if by_name else None)
+        lib = cuda_build.load(pk.SOURCE, pk._SIGNATURES)
+        dw = torch.empty(n, dtype=torch.float32, device=device)
+        args = (rows.data_ptr(), n, g.data_ptr(), 8, dw.data_ptr(),
+                cuda_build.row_blocks(n), cuda_build.stream(device))
+
+        def old_device_and_stream():
+            with torch.cuda.device(device):
+                return torch.cuda.current_stream(device).cuda_stream
+
+        pieces = {
+            "pair_rowgrad_cuda, the whole call": lambda: pk.pair_rowgrad_cuda(
+                rows, g),
+            "torch.matmul(g, R)": lambda: torch.matmul(g, rows),
+            "the ctypes call and launch alone": lambda: lib.pair_rowgrad(
+                *args),
+            "torch.empty": lambda: torch.empty(n, dtype=torch.float32,
+                                               device=device),
+            "argument checks": lambda: pk._check_float32(
+                device, [("rows", rows), ("g", g)]),
+            "cuda_build.load": lambda: cuda_build.load(pk.SOURCE,
+                                                       pk._SIGNATURES),
+            "cuda_build.stream (raw handle)": lambda: cuda_build.stream(
+                device),
+            "torch.cuda.current_device": torch.cuda.current_device,
+            "torch.cuda.device + current_stream (no longer used)":
+                old_device_and_stream}
+        host = {}
+        for name, fn in pieces.items():
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            host[name] = (time.perf_counter() - t0) / 2000 * 1e6
+            torch.cuda.synchronize()
+        out["host_us"] = host
+        log(f"6r at {n:,} halos: device ms a call pair_rowgrad "
+            f"{out['rowgrad_device_ms']}, torch.matmul {out['matmul_device_ms']}"
+            "; host us a call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in host.items()))
+        return out
+
+    pair_1e5 |= rowgrad_like_for_like(PAIR_HALOS)
     pair_1e6 = pair_times(PAIR_BIG, 3, plain=False)
 
     # 13. the wp(rp) model at 8,192 halos -------------------------------
@@ -961,12 +1097,27 @@ def main():
     bwd_vec_bound = bound(
         4 * (2 * nc + e + (e - 1) + 2 * nc + e),
         nc * (VEC_BWD_OPS_PER_EDGE * e + INV_OPS + VEC_BWD_OPS))
-    fused_fwd_bound = bound(
-        4 * (3 * nc + n_fused_edges + (w - 1) * nc),
-        nc * (FWD_OPS_PER_CDF * w + (w - 1) + INV_OPS))
-    fused_bwd_bound = bound(
-        4 * (3 * nc + n_fused_edges + (w - 1) * nc + 2 * nc),
-        nc * (FUSED_BWD_OPS_PER_SLOT * w + FUSED_BWD_OPS))
+    # The fused kernels (one launch each way):
+    # values and sigma read once, the edges (and the counts' cotangent)
+    # once, the counts (or dv and dsigma) written once; no masses.  Per
+    # particle the window start (the clip, x = v - half·sigma: 3; a compare
+    # and a select per step of the search over E edges: 2·ceil(log2 E);
+    # the clip to [0, E-W]: 2) and, forward, W cdfs, W-1 differences and
+    # W-1 adds into the bins.
+    search = 5 + 2 * math.ceil(math.log2(n_fused_edges))
+
+    def fused_bounds(n):
+        """The fused forward's and backward's bounds for ``n`` particles
+        with a per-particle sigma."""
+        return (bound(4 * (2 * n + n_fused_edges + (n_fused_edges - 1)),
+                      n * (FWD_OPS_PER_CDF * w + 2 * (w - 1) + INV_OPS
+                           + search)),
+                bound(4 * (2 * n + n_fused_edges + (n_fused_edges - 1)
+                           + 2 * n),
+                      n * (FUSED_BWD_OPS_PER_SLOT * w + FUSED_BWD_OPS
+                           + search)))
+
+    fused_fwd_bound, fused_bwd_bound = fused_bounds(nc)
     # The pair kernels at the wp(rp) path's shape (an autocorrelation of
     # PAIR_HALOS, 9 edges): positions and weights read once, counts and R,
     # or dw, written once; every pair's separation, and the bins of the
@@ -989,13 +1140,19 @@ def main():
             f"{fb[0]:.4f}, {fb[1]}), pair_rowgrad {times['rowgrad_ms']:.4f} "
             f"ms (bound {rb[0]:.4f}, {rb[1]}), sweep {times['bwd_ms']:.4f} "
             f"ms (bound {bb[0]:.4f}, {bb[1]})")
-    for label, (b_ms, b_by), big_ms in (
-            ("erf_counts_fwd_vec", fwd_vec_bound, vec_1e8["fwd_ms"]),
-            ("erf_counts_bwd_vec", bwd_vec_bound, vec_1e8["bwd_ms"]),
-            ("fused_masses_fwd", fused_fwd_bound, fused_1e8["fwd_ms"]),
-            ("fused_masses_bwd", fused_bwd_bound, fused_1e8["bwd_ms"])):
+    # At 1e8 the same per-particle work 100 times over (the edges once).
+    big_fused = fused_bounds(BIG_HALOS)
+    for label, (b_ms, b_by), big_ms, big_bound in (
+            ("erf_counts_fwd_vec", fwd_vec_bound, vec_1e8["fwd_ms"],
+             100 * fwd_vec_bound[0]),
+            ("erf_counts_bwd_vec", bwd_vec_bound, vec_1e8["bwd_ms"],
+             100 * bwd_vec_bound[0]),
+            ("fused_counts_fwd", fused_fwd_bound, fused_1e8["fwd_ms"],
+             big_fused[0][0]),
+            ("fused_counts_bwd", fused_bwd_bound, fused_1e8["bwd_ms"],
+             big_fused[1][0])):
         log(f"{label}: bound {b_ms:.4f} ms at 1e6 ({b_by}); "
-            f"{big_ms:.4f} ms at 1e8 (bound {100 * b_ms:.4f} ms)")
+            f"{big_ms:.4f} ms at 1e8 (bound {big_bound:.4f} ms)")
 
     def row(name, line, launches, path, out, key, b, device_ms,
             source="pair_counts.cu", library_ms=None):
@@ -1030,14 +1187,14 @@ def main():
             f"history dense, {hist_run}", vec_1e6, "bwd", bwd_vec_bound,
             kernel_device_ms(dense_profile, "erf_bwd_kernel", "true"),
             "erf_counts.cu"),
-        row("fused_masses_fwd", 526, fused_launches,
+        row("fused_counts_fwd", 526, fused_launches,
             f"history fused, {hist_run}", fused_1e6, "fwd", fused_fwd_bound,
-            kernel_device_ms(fused_profile, "fused_fwd_kernel", "true"),
-            "fused_masses.cu"),
-        row("fused_masses_bwd", 553, fused_launches,
+            kernel_device_ms(fused_profile, "fused_counts_fwd_kernel"),
+            "fused_counts.cu"),
+        row("fused_counts_bwd", 553, fused_launches,
             f"history fused, {hist_run}", fused_1e6, "bwd", fused_bwd_bound,
-            kernel_device_ms(fused_profile, "fused_bwd_kernel", "true"),
-            "fused_masses.cu"),
+            kernel_device_ms(fused_profile, "fused_counts_bwd_kernel"),
+            "fused_counts.cu"),
         row("pair_counts_fwd", 837, wprp_launches,
             f"wp(rp), {PAIR_HALOS:,} halos, 20 Adam steps", pair_1e5,
             "fwd", pair_fwd_bound,
@@ -1046,7 +1203,9 @@ def main():
             f"wp(rp), {PAIR_HALOS:,} halos, 20 Adam steps", pair_1e5,
             "rowgrad", pair_row_bound,
             kernel_device_ms(wp_profile, "pair_rowgrad_kernel"),
-            library_ms=pair_1e5["rowgrad_library_ms"]),
+            library_ms=pair_1e5["rowgrad_library_ms"])
+        | {"device_ms_like_for_like": pair_1e5["rowgrad_device_ms"],
+           "library_device_ms": pair_1e5["matmul_device_ms"]},
         # No one-process model path sweeps the pairs in its backward: the
         # sweep's launches are those of phase 12's cross-correlation.
         row("pair_counts_bwd", 879, cross_launches,

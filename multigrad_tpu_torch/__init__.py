@@ -11,9 +11,9 @@ The hot op, the erf-CDF binned counts of the SMF and galaxy–halo
 models, runs as hand-written CUDA kernels on CUDA tensors and as their
 plain PyTorch versions on CPU tensors: the dense counts with a scalar or
 a per-particle sigma (``csrc/erf_counts.cu``) and the fused windowed
-bin masses (``csrc/fused_masses.cu``), forward and backward.  The
-history model's integration and the scatter of fused masses into bins
-are PyTorch ops on either device.
+counts (``csrc/fused_counts.cu``: window start, masses and their scatter
+into bins in one launch), forward and backward.  The history model's
+integration is PyTorch ops on either device.
 """
 from .parallel.mesh import MeshComm, global_comm  # noqa: F401
 from .parallel.collectives import reduce_sum, scatter_nd  # noqa: F401

@@ -1,5 +1,5 @@
 // Numerics and reductions shared by the erf-CDF kernels (erf_counts.cu,
-// fused_masses.cu).
+// fused_counts.cu) and the pair kernels (pair_counts.cu).
 //
 // The same clamped rational polynomial as XLA's f32 erf (the plain
 // PyTorch versions' _erf_f32), IEEE division and expf (no fast-math), and
@@ -66,6 +66,19 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
   return x;
+}
+
+// After every thread of the block has written its part of the block's
+// partials row: true in the last block of the grid to get here, which
+// may then read every row.
+__device__ __forceinline__ bool last_block(int* counter) {
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (s_last) __threadfence();
+  return s_last;
 }
 
 // Reduce each of the first `ncols` of a thread's `acc` over the block and

@@ -73,19 +73,6 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b, const vo
           15u) == 0;
 }
 
-// After every thread of the block has written its part of the block's
-// partials row: true in the last block of the grid to get here, which
-// may then read every row.
-__device__ __forceinline__ bool last_block(int* counter) {
-  __shared__ bool s_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == static_cast<int>(gridDim.x) - 1;
-  __syncthreads();
-  if (s_last) __threadfence();
-  return s_last;
-}
-
 // In the last block: each column of partials (rows, cols) summed over
 // the rows, in a fixed order; the sum of column c is returned to thread
 // c < cols.  Thread t adds column t % cols over rows t / cols, t / cols +

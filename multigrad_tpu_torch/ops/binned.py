@@ -24,11 +24,12 @@ saturates exactly, and the gradient of a padded particle is 0, not NaN.
 On a CUDA tensor the counts always go through the hand-written kernels
 of :mod:`~multigrad_tpu_torch.ops.erf_kernels` (dense) and
 :mod:`~multigrad_tpu_torch.ops.fused_kernels` (fused); on a CPU tensor
-through their plain versions.  The device decides.  The fused path's
-scatter of masses into bins (:func:`scatter_bin_masses`) is PyTorch's
-``index_add_`` on either device, as the JAX package leaves it to XLA; on
-the card it adds with atomics, so its counts vary from run to run in
-the last bits of float32 (see :func:`window_rows`).
+through their plain versions.  The device decides.  On the card the fused
+counts are one kernel launch each way, which finds the window starts,
+adds the masses into bins in a fixed order and gathers the counts'
+cotangent itself, so they repeat bit for bit.  The plain fused versions
+use :func:`window_starts` and :func:`scatter_bin_masses` (PyTorch's
+``index_add_``, as the JAX package leaves the scatter to XLA).
 """
 from __future__ import annotations
 
@@ -112,8 +113,9 @@ def window_rows(src_t, start, n_edges: int):
     then the runs' rows are summed.  No float32 accumulator takes more
     than about √N terms, so the sums stay close to the dense path's at
     large N, where one accumulator per (start, slot) would take a large
-    share of the N terms and its rounding would grow with them.  On the
-    card the adds are atomics, so the last bits vary from run to run.
+    share of the N terms and its rounding would grow with them.  On a
+    CUDA tensor ``index_add_`` adds with atomics, so the last bits would
+    vary from run to run; the fused counts on the card do not run it.
     """
     slots, n = src_t.shape
     runs = max(1, math.isqrt(n))

@@ -6,6 +6,15 @@ The library goes to ``build/multigrad_tpu_torch/`` beside the package,
 under a name that carries the hash of the source, the shared headers and
 the flags, so an edited source is rebuilt.  :func:`build` starts one
 ``nvcc`` per source that needs it, all at once.
+
+The wrappers share one call path, kept short because at the history
+model's 1e6-particle launches a call's host time is of the order of the
+kernel's device time: :func:`load` returns a loaded library without a
+lock, :func:`stream` the raw handle of the current stream,
+:func:`workspace` the SM count, that handle and the stream's scratch of
+the one-launch kernels (one dictionary lookup), and :func:`call` makes
+one ctypes call, with the tensor's device made current only when it is
+not.
 """
 from __future__ import annotations
 
@@ -17,12 +26,13 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Every kernel source of the port, one shared library each.
-SOURCES = ("erf_counts.cu", "fused_masses.cu", "pair_counts.cu")
+SOURCES = ("erf_counts.cu", "fused_counts.cu", "pair_counts.cu")
 #: Where the shared libraries are built: ``build/multigrad_tpu_torch/``
 #: beside the package.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -31,10 +41,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _THREADS = 256  # = erfk::kThreads (csrc/erf_common.cuh)
-_BLOCKS_PER_SM = 8
+
+#: Floats of each stream's partials buffer (16 MB): the blocks' partial
+#: rows of the one-launch kernels, (grid, columns).
+PARTIALS = 1 << 22
+#: Items a block of a one-launch kernel takes at least, and blocks an SM
+#: it runs at most (see :func:`one_launch_grid`).
+PER_BLOCK = 4096
+MAX_BLOCKS_PER_SM = 16
+#: The workspace's ticket counters, one a kernel (an index into
+#: :attr:`Workspace.counters`).
+ERF_FWD, ERF_BWD, FUSED_FWD, FUSED_BWD = range(4)
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+# (device index, stream) -> Workspace.
+_WORKSPACES: dict = {}
 
 
 def _nvcc():
@@ -100,6 +122,9 @@ def load(source: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built at first use, with
     ``signatures`` (``{name: argtypes}``, each returning a C int) set on
     its functions."""
+    lib = _LIBS.get(source)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:
@@ -112,12 +137,67 @@ def load(source: str, signatures: dict) -> ctypes.CDLL:
         return lib
 
 
-def grid(n: int, device) -> int:
-    """Blocks for a grid-stride loop over ``n`` items: one per
-    ``_THREADS`` items, capped at ``_BLOCKS_PER_SM`` resident blocks on
-    every SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // _THREADS), sms * _BLOCKS_PER_SM))
+class Workspace(NamedTuple):
+    """What a launch on one stream needs besides its tensors."""
+    sms: int            # the device's multiprocessors
+    stream: int         # the raw handle of the stream
+    counters: int       # pointer to the ticket counters, int32 (4,)
+    partials: int       # pointer to the partials buffer, float32
+    tensors: tuple      # the two buffers, kept alive
+
+    def counter(self, kernel: int) -> int:
+        """Pointer to the ticket counter of ``kernel`` (``ERF_FWD``, ...)."""
+        return self.counters + 4 * kernel
+
+
+def stream(device) -> int:
+    """The raw handle of the current CUDA stream on ``device``."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def workspace(device) -> Workspace:
+    """The :class:`Workspace` of the current stream on ``device``: the
+    ticket counters (zeroed once here; the last block of every launch puts
+    its counter back to 0) and the partials buffer (``PARTIALS`` floats)
+    of the one-launch kernels.  Launches on one stream run in order, so
+    they share its workspace."""
+    key = (device.index, stream(device))
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        counters = torch.zeros(4, dtype=torch.int32, device=device)
+        partials = torch.empty(PARTIALS, dtype=torch.float32, device=device)
+        ws = _WORKSPACES[key] = Workspace(
+            sms, key[1], counters.data_ptr(), partials.data_ptr(),
+            (counters, partials))
+    return ws
+
+
+def call(device, fn, *args) -> int:
+    """``fn(*args)`` (a C launcher) with ``device`` the current device, as
+    a launch on one of its streams needs; the C function's return code."""
+    if torch.cuda.current_device() == device.index:
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+def one_launch_grid(n: int, sms: int, cols: int) -> int:
+    """Blocks of a one-launch kernel (a grid-stride loop over ``n`` items
+    whose every block writes a row of ``cols`` partials for the last block
+    to add up) on ``sms`` SMs: one per ``PER_BLOCK`` items, rounded up to
+    the same number of blocks on every SM (a grid that is not a multiple
+    of the SM count leaves some SMs a block more to run), at most
+    ``MAX_BLOCKS_PER_SM`` an SM, and at most the rows ``PARTIALS`` holds.
+    The grid of the dense and the fused erf kernels
+    (``erf_kernels.erf_grid``, ``fused_kernels.fused_grid``), measured on
+    an H100 by ``tools/erf_kernels_ab.py``'s and
+    ``tools/fused_kernels_ab.py``'s sweeps (``PERF.md`` §6)."""
+    per_sm = min(-(-n // (PER_BLOCK * sms)), MAX_BLOCKS_PER_SM)
+    return max(1, min(sms * per_sm, PARTIALS // cols))
 
 
 def row_blocks(n: int) -> int:

@@ -200,14 +200,6 @@ _SIGNATURES = {
 
 #: Particles a kernel thread takes per step (``kPer`` in the source).
 PER_THREAD = 4
-_THREADS = 256          # = erfk::kThreads (csrc/erf_common.cuh)
-#: Steps of the grid-stride loop a thread takes at least, and blocks an
-#: SM runs at most (see :func:`erf_grid`).
-_MIN_STEPS = 4
-_MAX_BLOCKS_PER_SM = 16
-
-# (device, stream) -> (SMs, ticket counters (2,) int32, partials).
-_WORKSPACES: dict = {}
 
 
 def _lib():
@@ -215,28 +207,12 @@ def _lib():
 
 
 def erf_grid(n: int, sms: int) -> int:
-    """Blocks for ``n`` particles on ``sms`` SMs: enough that every thread
-    takes ``_MIN_STEPS`` steps of ``PER_THREAD`` particles, at most
-    ``_MAX_BLOCKS_PER_SM`` an SM (the grid-stride loop takes the rest).
-    Measured on an H100 at the history's 1e6-particle launch and the
-    SMF's 1e8 (``tools/erf_kernels_ab.py``'s sweep, ``PERF.md`` §6)."""
-    steps = _MIN_STEPS * PER_THREAD * _THREADS
-    return max(1, min(-(-n // steps), sms * _MAX_BLOCKS_PER_SM))
-
-
-def _workspace(device, stream):
-    """The SM count and the scratch of the kernels on ``stream``: their
-    ticket counters (one each, zeroed once here; the last block of every
-    launch puts its counter back to 0) and the blocks' partial rows."""
-    key = (device, stream)
-    ws = _WORKSPACES.get(key)
-    if ws is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        ws = _WORKSPACES[key] = (
-            sms, torch.zeros(2, dtype=torch.int32, device=device),
-            torch.empty(sms * _MAX_BLOCKS_PER_SM * (MAX_EDGES + 1),
-                        dtype=torch.float32, device=device))
-    return ws
+    """Blocks for ``n`` particles on ``sms`` SMs, by the one-launch
+    kernels' rule (:func:`~.cuda_build.one_launch_grid`): a block per
+    4,096 particles (four steps of ``PER_THREAD`` a thread) or more, the
+    same number on every SM, at most 16 an SM (the grid-stride loop takes
+    the rest)."""
+    return cuda_build.one_launch_grid(n, sms, MAX_EDGES + 1)
 
 
 def _check_cuda_args(values, edges, sigma, vec, g=None):
@@ -266,13 +242,12 @@ def _launch_fwd(values, edges, sigma, vec):
     lib = _lib()
     n, n_edges, device = values.shape[0], edges.shape[0], values.device
     counts = torch.empty(n_edges - 1, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        sms, counters, partials = _workspace(device, stream)
-        code = lib.erf_counts_fwd(
-            values.data_ptr(), n, edges.data_ptr(), n_edges,
-            sigma.data_ptr(), int(vec), partials.data_ptr(),
-            counters.data_ptr(), erf_grid(n, sms), counts.data_ptr(), stream)
+    ws = cuda_build.workspace(device)
+    code = cuda_build.call(
+        device, lib.erf_counts_fwd, values.data_ptr(), n, edges.data_ptr(),
+        n_edges, sigma.data_ptr(), int(vec), ws.partials,
+        ws.counter(cuda_build.ERF_FWD), erf_grid(n, ws.sms),
+        counts.data_ptr(), ws.stream)
     cuda_build.raise_on(code, "erf_counts_fwd")
     return counts
 
@@ -285,15 +260,12 @@ def _launch_bwd(values, edges, sigma, g, vec):
     de = torch.empty_like(edges)
     ds = torch.empty_like(values) if vec else torch.empty(
         (), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        sms, counters, partials = _workspace(device, stream)
-        code = lib.erf_counts_bwd(
-            values.data_ptr(), n, edges.data_ptr(), n_edges,
-            sigma.data_ptr(), int(vec), g.data_ptr(), dv.data_ptr(),
-            de.data_ptr(), ds.data_ptr(), partials.data_ptr(),
-            counters.data_ptr() + 4,  # the second int32: the backward's
-            erf_grid(n, sms), stream)
+    ws = cuda_build.workspace(device)
+    code = cuda_build.call(
+        device, lib.erf_counts_bwd, values.data_ptr(), n, edges.data_ptr(),
+        n_edges, sigma.data_ptr(), int(vec), g.data_ptr(), dv.data_ptr(),
+        de.data_ptr(), ds.data_ptr(), ws.partials,
+        ws.counter(cuda_build.ERF_BWD), erf_grid(n, ws.sms), ws.stream)
     cuda_build.raise_on(code, "erf_counts_bwd")
     return dv, de, ds
 

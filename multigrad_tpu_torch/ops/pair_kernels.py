@@ -222,21 +222,20 @@ def pair_counts_fwd_cuda(pos1, w1, pos2, w2, edges_sq, box=None, pimax=None,
     _check_cuda_args(pos1, pos2, edges_sq, w1=w1, w2=w2)
     lib = cuda_build.load(SOURCE, _SIGNATURES)
     n1, n2, n_edges = pos1.shape[0], pos2.shape[0], edges_sq.shape[0]
-    with torch.cuda.device(pos1.device):
-        grid = cuda_build.row_blocks(n1)
-        partials = torch.empty((grid, n_edges - 1), dtype=torch.float32,
-                               device=pos1.device)
-        counts = torch.empty(n_edges - 1, dtype=torch.float32,
-                             device=pos1.device)
-        row_sums = (torch.empty((n_edges - 1, n1), dtype=torch.float32,
-                                device=pos1.device) if rows else None)
-        stream = torch.cuda.current_stream(pos1.device).cuda_stream
-        code = lib.pair_counts_fwd(
-            pos1.data_ptr(), w1.data_ptr(), n1, pos2.data_ptr(),
-            w2.data_ptr(), n2, edges_sq.data_ptr(), n_edges,
-            *_geometry(box, pimax),
-            None if row_sums is None else row_sums.data_ptr(),
-            partials.data_ptr(), grid, counts.data_ptr(), stream)
+    device = pos1.device
+    grid = cuda_build.row_blocks(n1)
+    partials = torch.empty((grid, n_edges - 1), dtype=torch.float32,
+                           device=device)
+    counts = torch.empty(n_edges - 1, dtype=torch.float32, device=device)
+    row_sums = (torch.empty((n_edges - 1, n1), dtype=torch.float32,
+                            device=device) if rows else None)
+    code = cuda_build.call(
+        device, lib.pair_counts_fwd, pos1.data_ptr(), w1.data_ptr(), n1,
+        pos2.data_ptr(), w2.data_ptr(), n2, edges_sq.data_ptr(), n_edges,
+        *_geometry(box, pimax),
+        None if row_sums is None else row_sums.data_ptr(),
+        partials.data_ptr(), grid, counts.data_ptr(),
+        cuda_build.stream(device))
     cuda_build.raise_on(code, "pair_counts_fwd")
     pair_counts_fwd_cuda.launches += 1
     return (counts, row_sums) if rows else counts
@@ -253,12 +252,11 @@ def pair_rowgrad_cuda(rows, g):
                          f"{MAX_BINS}, got {tuple(rows.shape)} and "
                          f"{tuple(g.shape)}")
     lib = cuda_build.load(SOURCE, _SIGNATURES)
-    with torch.cuda.device(rows.device):
-        dw1 = torch.empty(n1, dtype=torch.float32, device=rows.device)
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        code = lib.pair_rowgrad(rows.data_ptr(), n1, g.data_ptr(), nb,
-                                dw1.data_ptr(), cuda_build.row_blocks(n1),
-                                stream)
+    dw1 = torch.empty(n1, dtype=torch.float32, device=rows.device)
+    code = cuda_build.call(
+        rows.device, lib.pair_rowgrad, rows.data_ptr(), n1, g.data_ptr(), nb,
+        dw1.data_ptr(), cuda_build.row_blocks(n1),
+        cuda_build.stream(rows.device))
     cuda_build.raise_on(code, "pair_rowgrad")
     pair_rowgrad_cuda.launches += 1
     return dw1
@@ -271,14 +269,12 @@ def pair_counts_bwd_cuda(pos1, pos2, w2, edges_sq, g, box=None, pimax=None):
     _check_cuda_args(pos1, pos2, edges_sq, w2=w2, g=g)
     lib = cuda_build.load(SOURCE, _SIGNATURES)
     n1, n2, n_edges = pos1.shape[0], pos2.shape[0], edges_sq.shape[0]
-    with torch.cuda.device(pos1.device):
-        dw1 = torch.empty(n1, dtype=torch.float32, device=pos1.device)
-        stream = torch.cuda.current_stream(pos1.device).cuda_stream
-        code = lib.pair_counts_bwd(
-            pos1.data_ptr(), n1, pos2.data_ptr(), w2.data_ptr(), n2,
-            edges_sq.data_ptr(), n_edges, g.data_ptr(),
-            *_geometry(box, pimax), dw1.data_ptr(),
-            cuda_build.row_blocks(n1), stream)
+    dw1 = torch.empty(n1, dtype=torch.float32, device=pos1.device)
+    code = cuda_build.call(
+        pos1.device, lib.pair_counts_bwd, pos1.data_ptr(), n1,
+        pos2.data_ptr(), w2.data_ptr(), n2, edges_sq.data_ptr(), n_edges,
+        g.data_ptr(), *_geometry(box, pimax), dw1.data_ptr(),
+        cuda_build.row_blocks(n1), cuda_build.stream(pos1.device))
     cuda_build.raise_on(code, "pair_counts_bwd")
     pair_counts_bwd_cuda.launches += 1
     return dw1

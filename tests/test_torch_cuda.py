@@ -8,9 +8,8 @@ it runs there without the suite's conftest:
 
 Tolerances are those of ``chip_smoke.py``: forward max|err| within
 2e-5·max|count|, gradients rtol 1e-3 with atol 1e-5·max|grad| (float32
-sums over particles in another order); the fused masses, computed by the
-same float32 operations in the same order, equal the plain version's to
-1e-6; fused counts against dense rtol 1e-5, atol 1e-4.
+sums over particles in another order); fused counts against dense rtol
+1e-5, atol 1e-4.
 """
 import numpy as np
 import pytest
@@ -171,23 +170,65 @@ def test_dense_kernels_unaligned_values(dev, vec):
     _dense_case(v, e, s, g)
 
 
-@pytest.mark.parametrize("vec", [False, True])
-def test_fused_kernels_match_plain(dev, vec):
-    v, e, s, _ = _vec_inputs(dev, n_edges=41)
-    s = s if vec else s[0].clone()
-    window = tb.fused_bin_window(e, 0.32)
-    start = tb.window_starts(torch.clamp(v, -1e18, 1e18), e, s, window)
-    masses = fk.fused_masses_fwd_cuda(v, e, s, start, window)
-    want = fk.fused_masses_fwd_plain(v, e, s, start, window)
-    assert masses.shape == (window - 1, v.shape[0])
-    assert float((masses - want).abs().max()) <= 1e-6
-    g = torch.randn(window - 1, v.shape[0], device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(0))
-    got = fk.fused_masses_bwd_cuda(v, e, s, start, window, g, True)
-    for a, b in zip(got, fk.fused_masses_bwd_plain(v, e, s, start, window,
-                                                   g, True)):
+def _fused_case(v, e, s, g, window):
+    """The fused kernels against their plain versions (counts within
+    2e-5·max|count|, all three gradients rtol 1e-3, atol 1e-5·max|grad|),
+    and every output the same bit for bit on a second call."""
+    fwd = fk.fused_counts_fwd_cuda(v, e, s, window)
+    want = fk.fused_counts_fwd_plain(v, e, s, window)
+    assert fwd.shape == want.shape == (e.shape[0] - 1,)
+    assert float((fwd - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert torch.equal(fwd, fk.fused_counts_fwd_cuda(v, e, s, window))
+    got = fk.fused_counts_bwd_cuda(v, e, s, window, g, True)
+    again = fk.fused_counts_bwd_cuda(v, e, s, window, g, True)
+    for a, b, c in zip(got, fk.fused_counts_bwd_plain(v, e, s, window, g,
+                                                      True), again):
         assert a.shape == b.shape and torch.isfinite(a).all()
         _assert_close(a, b)
+        assert torch.equal(a, c)
+    # Without the edges' gradient (the main path): the same dv and dsigma
+    # bit for bit (one grid and block size either way; a scalar's sum
+    # added up in the same order).
+    dv, de, ds = fk.fused_counts_bwd_cuda(v, e, s, window, g)
+    assert de is None and torch.equal(dv, got[0]) and torch.equal(ds, got[2])
+    return got
+
+
+# (edges, window, sigma range): the history's 41 edges at its window of 33
+# and at others; per-thread columns at 256 (41
+# edges), 128 (300) and 32 threads a block (1,000); per-warp rows at
+# 16,384 edges, with sigmas that a window of 128 covers.
+FUSED_SHAPES = {"E2_W2": (2, 2, (0.1, 0.32)), "E41_W33": (41, 33, (0.1, 0.32)),
+                "E41_W2": (41, 2, (0.1, 0.32)), "E41_W41": (41, 41, (0.1, 0.32)),
+                "E300_W128": (300, 128, (0.02, 0.1)),
+                "E1000_W128": (1000, 128, (0.005, 0.03)),
+                "E16384_W128": (16_384, 128, (0.0005, 0.003)),
+                "E16384_W33": (16_384, 33, (0.0005, 0.003))}
+
+
+@pytest.mark.parametrize("shape", sorted(FUSED_SHAPES))
+@pytest.mark.parametrize("vec", [False, True])
+def test_fused_kernels_match_plain(dev, vec, shape):
+    n_edges, window, (lo, hi) = FUSED_SHAPES[shape]
+    v, e, _, g = _vec_inputs(dev, n_edges=n_edges, seed=n_edges + window)
+    rng = np.random.default_rng(window)
+    s = torch.tensor(rng.uniform(lo, hi, v.shape[0]).astype(np.float32),
+                     device=dev)
+    s = s if vec else s[0].clone()
+    dv, _, ds = _fused_case(v, e, s, g, window)
+    assert float(dv[-1]) == 0.0      # +inf padding is neutral
+    if vec:
+        assert float(ds[-1]) == 0.0
+
+
+@pytest.mark.parametrize("vec", [False, True])
+def test_fused_kernels_ragged_and_unaligned(dev, vec):
+    # N not a multiple of anything, from one float into its storage, and
+    # a single particle.
+    v, e, s, g = _vec_inputs(dev, n=70_001, n_edges=41)
+    v, s = v[1:], (s[1:] if vec else s[0].clone())
+    _fused_case(v, e, s, g, 33)
+    _fused_case(v[:1].clone(), e, s[:1].clone() if vec else s, g, 33)
 
 
 @pytest.mark.parametrize("vec", [False, True])
@@ -195,21 +236,27 @@ def test_fused_counts_match_dense(dev, vec):
     v, e, s, g = _vec_inputs(dev, n_edges=41)
     s = (s if vec else s[0].clone()).requires_grad_()
     v.requires_grad_()
-    before = (fk.fused_masses_fwd_cuda.launches,
-              fk.fused_masses_bwd_cuda.launches)
-    fused = binned_erf_counts(v, e, s, bin_mode="fused",
-                              bin_window=tb.fused_bin_window(e, 0.32))
+    e.requires_grad_()
+    before = (fk.fused_counts_fwd_cuda.launches,
+              fk.fused_counts_bwd_cuda.launches)
+    window = tb.fused_bin_window(e, 0.32)
+    fused = binned_erf_counts(v, e, s, bin_mode="fused", bin_window=window)
     dense = binned_erf_counts(v, e, s)
     np.testing.assert_allclose(fused.detach().cpu().numpy(),
                                dense.detach().cpu().numpy(), rtol=1e-5,
                                atol=1e-4)
-    gf = torch.autograd.grad((fused * g).sum(), (v, s))
-    gd = torch.autograd.grad((dense * g).sum(), (v, s))
+    gf = torch.autograd.grad((fused * g).sum(), (v, e, s))
+    gd = torch.autograd.grad((dense * g).sum(), (v, e, s))
     for a, b in zip(gf, gd):
         _assert_close(a, b)
-    assert (fk.fused_masses_fwd_cuda.launches,
-            fk.fused_masses_bwd_cuda.launches) == (before[0] + 1,
+    assert (fk.fused_counts_fwd_cuda.launches,
+            fk.fused_counts_bwd_cuda.launches) == (before[0] + 1,
                                                    before[1] + 1)
+    # The whole fused path repeats bit for bit.
+    again = binned_erf_counts(v, e, s, bin_mode="fused", bin_window=window)
+    assert torch.equal(fused, again)
+    for a, b in zip(gf, torch.autograd.grad((again * g).sum(), (v, e, s))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["dense", "fused"])

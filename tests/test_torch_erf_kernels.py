@@ -272,9 +272,11 @@ def test_autograd_function_matches_finite_differences():
 
 def test_erf_grid_rule():
     # The CUDA kernels' grid (ops/erf_kernels.py::erf_grid): every thread
-    # takes at least four steps of four particles, at most 16 blocks an SM.
+    # takes at least four steps of four particles, as many blocks on every
+    # SM, at most 16 blocks an SM.
     from multigrad_tpu_torch.ops.erf_kernels import erf_grid
-    assert erf_grid(1, 132) == 1
-    assert erf_grid(4096, 132) == 1 and erf_grid(4097, 132) == 2
-    assert erf_grid(1_000_000, 132) == 245
+    assert erf_grid(1, 132) == 132
+    assert erf_grid(4096 * 132, 132) == 132
+    assert erf_grid(4096 * 132 + 1, 132) == 264
+    assert erf_grid(1_000_000, 132) == 264
     assert erf_grid(100_000_000, 132) == 132 * 16

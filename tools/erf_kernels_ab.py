@@ -10,8 +10,8 @@ buffer and a second ``sum_rows_kernel`` launch, ``erf_counts_bwd`` taking
 ``h`` and returning raw sums), for example ``git show
 0a92be5:multigrad_tpu_torch/csrc/erf_counts.cu``.  It is built with the
 package's ``nvcc`` flags beside ``csrc/erf_common.cuh`` under
-``build/erf_kernels_ab/`` and driven as its wrappers drove it: the grid of
-``cuda_build.grid``, ``h`` from ``g`` (``_h_from_g``) before the backward
+``build/erf_kernels_ab/`` and driven as its wrappers drove it: their grid
+(:func:`parent_grid`), ``h`` from ``g`` (``_h_from_g``) before the backward
 and the factors of ``_scale_grads`` (scalar sigma) or ``h · rows`` (a
 per-particle sigma) after it.  Needs one NVIDIA GPU.
 
@@ -24,9 +24,9 @@ gradients rtol 1e-3 with atol 1e-5·max|grad|).  Then it times old and new
 in turns (old, new, new, old): the median of CUDA-event runs with the
 wrapper, and the device time per call (all kernels of the call) from the
 torch profiler.  Last, it times the new kernels' device time per launch
-at grids of 1 to 16 blocks an SM and at one block per 1,024 particles,
-against the grid that :func:`multigrad_tpu_torch.ops.erf_kernels.erf_grid`
-picks.
+at grids of 1 to 16 blocks an SM, at one block per 1,024 and per 4,096
+particles, against the grid that
+:func:`multigrad_tpu_torch.ops.erf_kernels.erf_grid` picks.
 Prints one line per check and per time; exits non-zero if a check fails.
 """
 import ctypes
@@ -38,6 +38,14 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COT = [float(i) for i in range(10)]
+
+
+def parent_grid(n, device):
+    """The old kernels' grid: one block per 256 particles, at most 8 an
+    SM."""
+    import torch
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-n // 256), sms * 8))
 
 
 def build_old(source):
@@ -111,7 +119,7 @@ def main(argv):
 
     def old_fwd(v, e, s):
         vec = s.dim() > 0
-        grid = cuda_build.grid(v.shape[0], dev)
+        grid = parent_grid(v.shape[0], dev)
         part = torch.empty((grid, e.shape[0] - 1), device=dev)
         counts = torch.empty(e.shape[0] - 1, device=dev)
         code = old.erf_counts_fwd(v.data_ptr(), v.shape[0], e.data_ptr(),
@@ -126,7 +134,7 @@ def main(argv):
         n, n_edges = v.shape[0], e.shape[0]
         h = ek._h_from_g(g.to(torch.float32)).contiguous()
         cols = n_edges if vec else n_edges + 1
-        grid = cuda_build.grid(n, dev)
+        grid = parent_grid(n, dev)
         dv = torch.empty_like(v)
         ds = torch.empty_like(v) if vec else None
         part = torch.empty((grid, cols), device=dev)
@@ -233,9 +241,12 @@ def main(argv):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         vec = int(s.dim() > 0)
         s_k = s if vec else s.reshape(1)
-        groups = -(-n // (ek.PER_THREAD * ek._THREADS))
+        groups = -(-n // (ek.PER_THREAD * cuda_build._THREADS))
+        # A block per PER_BLOCK particles, not rounded to a multiple of
+        # the SMs, beside the others.
         grids = sorted({min(b * sms, groups) for b in (1, 2, 3, 4, 8, 16)}
-                       | {groups, ek.erf_grid(n, sms)})
+                       | {groups, ek.erf_grid(n, sms),
+                          min(-(-n // cuda_build.PER_BLOCK), 16 * sms)})
         counters = torch.zeros(2, dtype=torch.int32, device=dev)
         part = torch.empty(max(grids) * (n_edges + 1), device=dev)
         counts = torch.empty(n_edges - 1, device=dev)
