@@ -57,7 +57,17 @@ order:
 14. the wp(rp) path: ``WprpModel(make_wprp_data(1e5, box_size=250,
     pimax=20)).run_adam`` for 20 steps, launches counted (a forward and a
     row gradient a step, no sweep), and seconds per loss and gradient at
-    1e6 halos.
+    1e6 halos;
+15. the joint SMF + wp(rp) fit through ``OnePointGroup``: at 8,192 +
+    32,768 halos on the card against the same group on the CPU (both built
+    from the same numpy arrays), the group against its two members alone,
+    the loss at ``JOINT_TRUTH`` and an Adam fit recovering it; then
+    ``make_joint_smf_wprp(1e5, 1e8, box_size=250, pimax=20)``, the sizes of
+    phases 5 and 14, for 20 Adam steps, launches counted (the two solo
+    paths' launches added together: no sweep), steps/s, peak memory and a
+    profiler window of 3 steps; a checkpointed fit of 10 steps, unbounded
+    and within ``JOINT_BOUNDS``, equal to the plain one bit for bit, and a
+    second call a pure read (no kernel launched).
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
@@ -76,6 +86,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -126,6 +137,12 @@ PAIR_BOX, PAIR_PIMAX = 250.0, 20.0
 PAIR_OPS, PAIR_OPS_PER_BIN, PAIR_ROW_OPS_PER_BIN = 19, 3, 2
 PAIR_PLAIN_ROWS = 512
 WPRP_GUESS = (-1.8, -0.8)
+# The joint fit (tests/test_group.py's multi-probe fit): its guess and
+# bounds; the small group of phase 15 at 8,192 wp(rp) and 32,768 SMF halos.
+JOINT_GUESS = (-1.7, 0.35, -0.6)
+JOINT_BOUNDS = ((-4.0, 0.0), (0.01, 1.0), (-2.0, 0.0))
+JOINT_POINT = (-1.8, 0.3, -0.7)
+JOINT_SMALL = (8_192, 32_768)
 MAX_EDGES_FUSED = 16_384
 
 
@@ -138,22 +155,44 @@ def check(ok, what):
         raise AssertionError(what)
 
 
+#: Spin kernels launched at the start of every profiler window.  After a
+#: window of tens of thousands of launches (a history step), each later
+#: window loses its first few device events, more the more were recorded
+#: before; the lead-in takes the loss, and ``device_times`` logs it.  A
+#: window that keeps none of them may have lost its own events too, and
+#: fails the run.
+LEAD_IN = 256
+
+
 def device_times(fn):
     """Device time and launches by kernel name over ``fn()``
-    (torch.profiler), ``{name: (us, launches)}``, and the wall us."""
+    (torch.profiler), ``{name: (us, launches)}``, and the wall us.  The
+    window's ``LEAD_IN`` spin kernels are left out of both."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, lead = {}, 0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us, count = by_name.get(evt.name, (0.0, 0))
-            by_name[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "spin_kernel" in evt.name:
+            lead += 1
+            continue
+        us, count = by_name.get(evt.name, (0.0, 0))
+        by_name[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
+    if lead < LEAD_IN:
+        log(f"profiler window: {LEAD_IN - lead} of the {LEAD_IN} lead-in "
+            "events dropped")
+    check(lead > 0, f"profiler window: all {LEAD_IN} lead-in events "
+          "dropped, so the window's own events may be lost too")
     return by_name, wall_us
 
 
@@ -214,6 +253,9 @@ def main():
     from multigrad_tpu_torch.models import (WprpModel, XiModel,
                                             make_galaxy_mock, make_wprp_data,
                                             make_xi_data, selection_weights)
+    from multigrad_tpu_torch.models import (JOINT_TRUTH, aux_from_numpy,
+                                            make_joint_smf_wprp)
+    from multigrad_tpu_torch.models.joint import _joint_group
     from multigrad_tpu_torch.models.galhalo_hist import TRUTH as HIST_TRUTH
     from multigrad_tpu_torch.models.wprp import TRUTH as WPRP_TRUTH
     from multigrad_tpu_torch.ops import binned as tb
@@ -288,6 +330,19 @@ def main():
             log(f"{label}: profiler window {attempt} of {calls} calls saw "
                 f"{seen}")
         check(False, f"{label}: not one {stem} launch a call: {seen}")
+
+    def window_device_ms(label, fn, stem, calls=3):
+        """Device ms a launch of ``stem`` over ``calls`` calls of ``fn`` in
+        a profiler window (after one call outside it); None, logged with
+        what the window saw, where it holds none."""
+        fn()
+        torch.cuda.synchronize()
+        by_name, _ = device_times(lambda: [fn() for _ in range(calls)])
+        ms = kernel_device_ms(by_name, stem)
+        if ms is None:
+            log(f"{label}: the profiler window saw no {stem}: "
+                f"{sorted(name[:60] for name in by_name)}")
+        return ms
 
     def compare_kernels(values, sigma, label, timed):
         edges = torch.linspace(9, 10, 11, dtype=torch.float32, device=dev)
@@ -857,6 +912,20 @@ def main():
         f"cross-correlation launches {cross_launches}")
     close("cross autograd", "dw1", a.grad, cross["dw1"], 1e-3)
     close("cross autograd", "dw2", b.grad, cross["dw2"], 1e-3)
+
+    def cross_call():
+        a.grad = b.grad = None
+        counts = pk.pair_counts(pos, a, pos2, b, wp_edges, box_size=PAIR_BOX,
+                                pimax=PAIR_PIMAX)
+        (counts * cross["g"]).sum().backward()
+
+    # The sweep's device time where it runs: in a window holding the
+    # cross-correlation's forward and backward (60,001 rows against
+    # 100,003 columns, the sides swapped).
+    cross_sweep_ms = window_device_ms("cross autograd", cross_call,
+                                      "pair_bwd_kernel", calls=1)
+    log(f"cross-correlation through autograd: the sweep {cross_sweep_ms} "
+        "device ms a launch")
     del pos, w, pos2, w2, a, b, counts
     pos, w = mock(PAIR_RAGGED, 75.0, 14)
     pair_case(f"pair N={PAIR_RAGGED:,} 3D, box 75", pos, w, pos, w,
@@ -906,9 +975,8 @@ def main():
             out["bwd_plain_ms"] = time_ms(lambda: pk.pair_counts_bwd_plain(
                 p, wt, p, wt, esq, g, PAIR_BOX, PAIR_PIMAX, PAIR_PLAIN_ROWS,
                 True), 3, 1)
-            by_name, _ = device_times(lambda: [sweep() for _ in range(3)])
-            out["bwd_device_ms"] = kernel_device_ms(by_name,
-                                                    "pair_bwd_kernel")
+            out["bwd_device_ms"] = window_device_ms(
+                f"sweep at {n:,}", sweep, "pair_bwd_kernel")
         log(f"pair kernels at {n:,} halos: forward {out['fwd_ms']:.4f} ms, "
             f"pair_rowgrad {out['rowgrad_ms']:.4f} ms, sweep "
             f"{out['bwd_ms']:.4f} ms (plain "
@@ -1079,6 +1147,153 @@ def main():
     del wprp
     torch.cuda.empty_cache()
 
+    # 15. the joint SMF + wp(rp) fit ------------------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 15")
+
+    made = make_joint_smf_wprp(num_halos=JOINT_SMALL[0],
+                               smf_num_halos=JOINT_SMALL[1])
+    smf_view = made.models[0]
+    default_at_truth = float(smf_view.calc_loss_and_grad_from_params(
+        JOINT_TRUTH)[0])
+    # Self-consistent SMF target (tests/test_group.py): the default target
+    # is the golden SMF at 10,000 halos, whose chi² at the truth is not 0
+    # at 32,768 halos.
+    smf_view.aux_data["target_sumstats"] = smf_view.calc_sumstats_from_params(
+        JOINT_TRUTH)
+    arrays = [{k: (x.cpu().numpy() if isinstance(x, torch.Tensor) else x)
+               for k, x in m.aux_data.items()} for m in made.models]
+    card = _joint_group(*(aux_from_numpy(a, device="cuda") for a in arrays))
+    cpu = _joint_group(*(aux_from_numpy(a, device="cpu") for a in arrays))
+    del made, smf_view
+    at_truth = float(card.calc_loss_and_grad_from_params(JOINT_TRUTH)[0])
+    log(f"joint at {JOINT_SMALL[0]:,} + {JOINT_SMALL[1]:,} halos: loss at "
+        f"JOINT_TRUTH {at_truth:.3e} (the SMF member with its default "
+        f"target {default_at_truth:.6g})")
+    check(at_truth < 1e-10, f"joint loss at JOINT_TRUTH {at_truth}")
+    loss_g, grad_g = card.calc_loss_and_grad_from_params(JOINT_POINT)
+    loss_c, grad_c = cpu.calc_loss_and_grad_from_params(JOINT_POINT)
+    log(f"joint at {JOINT_POINT}: card {float(loss_g):.7g} "
+        f"{grad_g.tolist()}, CPU {float(loss_c):.7g} {grad_c.tolist()}")
+    # Phase 13's limits (the wp(rp) member's): loss rtol 1e-3, gradient
+    # rtol 1e-3 with atol 1e-5·max|grad|, and each member alone at its own
+    # scale.
+    check(abs(float(loss_g) - float(loss_c)) <= 1e-3 * abs(float(loss_c)),
+          "joint loss on the card differs from the CPU")
+    joint_err = close("joint", "gradient", grad_g.cpu(), grad_c)
+    members = []
+    for i, (m_g, m_c) in enumerate(zip(card.models, cpu.models)):
+        l_g, g_g = m_g.calc_loss_and_grad_from_params(JOINT_POINT)
+        l_c, g_c = m_c.calc_loss_and_grad_from_params(JOINT_POINT)
+        check(abs(float(l_g) - float(l_c)) <= 1e-3 * abs(float(l_c)),
+              f"joint member {i}: loss on the card differs from the CPU")
+        close(f"joint member {i}", "gradient", g_g.cpu(), g_c)
+        members.append((l_g, g_g))
+    sum_loss = float(members[0][0]) + float(members[1][0])
+    sum_grad = members[0][1] + members[1][1]
+    check(abs(float(loss_g) - sum_loss) <= 1e-6 * abs(sum_loss)
+          and bool(torch.allclose(grad_g, sum_grad, rtol=1e-6, atol=0)),
+          "the joint group is not the sum of its members alone")
+    t0 = time.perf_counter()
+    traj = card.run_adam(guess=JOINT_GUESS, nsteps=300, learning_rate=0.02,
+                         param_bounds=JOINT_BOUNDS, progress=False)
+    final = traj[-1].cpu().numpy()
+    log(f"joint recovery: 300 steps -> {final.tolist()} in "
+        f"{time.perf_counter() - t0:.2f} s; the group equals its members "
+        f"alone (rtol 1e-6); gradient max|err| against the CPU "
+        f"{joint_err:.3e}")
+    check(np.allclose(final, JOINT_TRUTH, atol=0.05),
+          f"joint fit ended at {final}")
+    del card, cpu, traj
+
+    t0 = time.perf_counter()
+    joint = make_joint_smf_wprp(num_halos=PAIR_HALOS,
+                                smf_num_halos=BIG_HALOS,
+                                wprp_kwargs=dict(box_size=PAIR_BOX,
+                                                 pimax=PAIR_PIMAX))
+    torch.cuda.synchronize()
+    log(f"joint: data and targets at {BIG_HALOS:,} + {PAIR_HALOS:,} halos "
+        f"in {time.perf_counter() - t0:.2f} s")
+    joint.run_adam(guess=JOINT_GUESS, nsteps=2, learning_rate=0.02,
+                   progress=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    traj = joint.run_adam(guess=JOINT_GUESS, nsteps=20, learning_rate=0.02,
+                          progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    joint_launches = read_launches()
+    joint_sps = 20 / seconds
+    joint_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"joint path: 20 Adam steps at {BIG_HALOS:,} + {PAIR_HALOS:,} halos "
+        f"in {seconds:.4f} s = {joint_sps:.3f} steps/s; peak memory "
+        f"{joint_peak_gb:.3f} GB; launches {joint_launches}")
+    # The solo paths' launches added together: the SMF's forward and
+    # backward, the wp(rp) forward and row gradient; no sweep.
+    check(joint_launches == dict.fromkeys(wrappers, 0) | {
+        "erf_counts_fwd": 20, "erf_counts_bwd": 20, "pair_counts_fwd": 20,
+        "pair_rowgrad": 20}, f"kernel launches on the joint path: "
+        f"{joint_launches}")
+    check(tuple(traj.shape) == (21, 3) and bool(torch.isfinite(traj).all()),
+          "joint trajectory not finite or of the wrong shape")
+    loss_0 = float(joint.calc_loss_and_grad_from_params(traj[0])[0])
+    loss_20 = float(joint.calc_loss_and_grad_from_params(traj[-1])[0])
+    log(f"joint path: loss {loss_0:.6g} -> {loss_20:.6g}, params "
+        f"{traj[-1].tolist()}")
+    check(loss_20 < loss_0, "the joint loss did not decrease")
+    joint_profile = profile_steps(joint, 3, JOINT_GUESS, 0.02)
+    rows_sums = {label: sum(c for name, (_, c) in prof.items()
+                            if "sum_rows_kernel" in name)
+                 for label, prof in (("joint", joint_profile),
+                                     ("wp(rp)", wp_profile))}
+    log(f"sum_rows_kernel launches in 3 steps: {rows_sums}")
+    check(rows_sums["joint"] == rows_sums["wp(rp)"],
+          f"sum_rows_kernel beyond the wp(rp) step's: {rows_sums}")
+
+    # Checkpointed Adam, unbounded and bounded: 10 steps in segments of 4
+    # equal the plain 10 bit for bit; a second call reads the finished fit
+    # (the trajectory it returned) and launches no kernel.
+    ckpt_root = os.path.join(HERE, "build")
+    os.makedirs(ckpt_root, exist_ok=True)
+    for bounds in (None, JOINT_BOUNDS):
+        with tempfile.TemporaryDirectory(dir=ckpt_root) as ckpt_dir:
+            fit = dict(guess=JOINT_GUESS, nsteps=10, learning_rate=0.02,
+                       param_bounds=bounds, progress=False)
+
+            def timed(**kwargs):
+                t0 = time.perf_counter()
+                out = joint.run_adam(**fit, **kwargs)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0
+
+            plain, plain_s = timed()
+            ckpted, ckpt_s = timed(checkpoint_dir=ckpt_dir,
+                                   checkpoint_every=4)
+            check(torch.equal(ckpted, plain),
+                  "the checkpointed joint fit differs from the plain one")
+            reset_launches()
+            read_profile, _ = device_times(lambda: joint.run_adam(
+                checkpoint_dir=ckpt_dir, checkpoint_every=4, **fit))
+            again, read_s = timed(checkpoint_dir=ckpt_dir,
+                                  checkpoint_every=4)
+        read_launched = read_launches()
+        # Only the copies of the data's checksum and the restored state.
+        read_kernels = [name for name in read_profile
+                        if not name.startswith("Memcpy")]
+        log(f"joint checkpointed fit ({'bounded' if bounds else 'unbounded'}"
+            f"): 10 steps in {ckpt_s:.3f} s (plain {plain_s:.3f} s), "
+            f"bit-identical to the plain fit; a second call reads it in "
+            f"{read_s:.3f} s, launches {read_launched}, device work in its "
+            f"profiler window "
+            f"{sorted(name[:60] for name in read_profile) or 'none'}")
+        check(torch.equal(again, plain), "the read checkpoint differs")
+        check(not any(read_launched.values()) and not read_kernels,
+              f"the checkpoint read launched kernels: {read_launched} "
+              f"{read_kernels}")
+    del joint, traj, plain, ckpted, again
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
@@ -1168,17 +1383,25 @@ def main():
                     device_ms=device_ms, plain_ms=out[f"{key}_plain_ms"],
                     bound_ms=b[0], bound_by=b[1], library_ms=library_ms)
 
+    def on_joint(name, stem, flag=None):
+        """The joint path's launches and device ms a launch of a kernel."""
+        return {"launches_joint": joint_launches[name],
+                "device_ms_joint": kernel_device_ms(joint_profile, stem,
+                                                   flag)}
+
     smf_path = f"SMF, {BIG_HALOS:,} halos, 20 Adam steps"
     hist_run = f"{BIG_HALOS:,} halos, {HIST_STEPS} Adam steps"
     kernels = [
         row("erf_counts_fwd", 201, smf_launches, smf_path, big, "fwd",
             (fwd_bound, fwd_by),
             kernel_device_ms(smf_profile, "erf_fwd_kernel", "false"),
-            "erf_counts.cu"),
+            "erf_counts.cu")
+        | on_joint("erf_counts_fwd", "erf_fwd_kernel", "false"),
         row("erf_counts_bwd", 237, smf_launches, smf_path, big, "bwd",
             (bwd_bound, bwd_by),
             kernel_device_ms(smf_profile, "erf_bwd_kernel", "false"),
-            "erf_counts.cu"),
+            "erf_counts.cu")
+        | on_joint("erf_counts_bwd", "erf_bwd_kernel", "false"),
         row("erf_counts_fwd_vec", 201, dense_launches,
             f"history dense, {hist_run}", vec_1e6, "fwd", fwd_vec_bound,
             kernel_device_ms(dense_profile, "erf_fwd_kernel", "true"),
@@ -1198,22 +1421,27 @@ def main():
         row("pair_counts_fwd", 837, wprp_launches,
             f"wp(rp), {PAIR_HALOS:,} halos, 20 Adam steps", pair_1e5,
             "fwd", pair_fwd_bound,
-            kernel_device_ms(wp_profile, "pair_fwd_kernel")),
+            kernel_device_ms(wp_profile, "pair_fwd_kernel"))
+        | on_joint("pair_counts_fwd", "pair_fwd_kernel"),
         row("pair_rowgrad", 879, wprp_launches,
             f"wp(rp), {PAIR_HALOS:,} halos, 20 Adam steps", pair_1e5,
             "rowgrad", pair_row_bound,
             kernel_device_ms(wp_profile, "pair_rowgrad_kernel"),
             library_ms=pair_1e5["rowgrad_library_ms"])
         | {"device_ms_like_for_like": pair_1e5["rowgrad_device_ms"],
-           "library_device_ms": pair_1e5["matmul_device_ms"]},
+           "library_device_ms": pair_1e5["matmul_device_ms"]}
+        | on_joint("pair_rowgrad", "pair_rowgrad_kernel"),
         # No one-process model path sweeps the pairs in its backward: the
         # sweep's launches are those of phase 12's cross-correlation.
         row("pair_counts_bwd", 879, cross_launches,
             "phase 12's cross-correlation through autograd", pair_1e5,
-            "bwd", pair_bwd_bound, pair_1e5["bwd_device_ms"]),
+            "bwd", pair_bwd_bound, pair_1e5["bwd_device_ms"])
+        | {"device_ms_cross": cross_sweep_ms},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
+    log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
+        "at 1e8 + 1e5 halos")
     log(f"done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -48,6 +48,51 @@ def _first_tensor(tree):
     return None
 
 
+def joint_loss_and_grad(models, comm, params, kwargs):
+    """The two-stage chain rule over ``models`` that share ``comm`` or have
+    ``comm=None``, all reading ``params``.
+
+    Every model's partial sumstats ``y_r``; ONE ``psum`` of the comm-ful
+    models' ``y_r``, flattened and joined (a ``comm=None`` model's are
+    whole already); each model's ``dL/dy`` on a leaf; one VJP into
+    ``params`` for the comm-ful models, whose gradient gets ONE ``psum``,
+    and one for the rest.  So 2 all-reduces an evaluation whatever the
+    number of models.  Returns each model's ``(loss, loss_aux)`` and the
+    gradient summed over the models.
+    """
+    p = params.detach().requires_grad_(True)
+    with torch.enable_grad():
+        outs = [m._sumstats(p, kwargs) for m in models]
+        shared = [i for i, m in enumerate(models) if m.comm is not None]
+        local = [i for i, m in enumerate(models) if m.comm is None]
+        totals = [y.detach() for y, _ in outs]
+        if len(shared) == 1:
+            totals[shared[0]] = psum(totals[shared[0]], comm)
+        elif shared:
+            flat = psum(torch.cat([totals[i].reshape(-1) for i in shared]),
+                        comm)
+            for i, part in zip(shared, flat.split(
+                    [totals[i].numel() for i in shared])):
+                totals[i] = part.reshape(totals[i].shape).to(
+                    totals[i].dtype)
+        losses, cotangents = [], []
+        for m, (_, ss_aux), y in zip(models, outs, totals):
+            y = y.requires_grad_(True)
+            loss, laux = m._loss(y, ss_aux, kwargs)
+            (dloss_dy,) = torch.autograd.grad(loss, y)
+            losses.append((loss.detach(), laux))
+            cotangents.append(dloss_dy)
+        grad = None
+        for members, comm_m in ((shared, comm), (local, None)):
+            if members:
+                (g,) = torch.autograd.grad(
+                    [outs[i][0] for i in members], p,
+                    grad_outputs=[cotangents[i] for i in members])
+                g = psum(g, comm_m)
+                grad = g if grad is None else grad + g
+    return losses, grad
+
+
 @dataclass
 class OnePointModel:
     """Differentiable data-parallel model over additive summary statistics.
@@ -119,14 +164,9 @@ class OnePointModel:
 
     def _loss_and_grad(self, params, kwargs):
         """The two-stage chain rule: ``((loss, loss_aux), grad)``."""
-        p = params.detach().requires_grad_(True)
-        with torch.enable_grad():
-            y_r, ss_aux = self._sumstats(p, kwargs)
-            y = psum(y_r.detach(), self.comm).requires_grad_(True)
-            loss, laux = self._loss(y, ss_aux, kwargs)
-            (dloss_dy,) = torch.autograd.grad(loss, y)
-            (grad,) = torch.autograd.grad(y_r, p, grad_outputs=dloss_dy)
-        return (loss.detach(), laux), psum(grad, self.comm)
+        (loss_aux,), grad = joint_loss_and_grad((self,), self.comm, params,
+                                                kwargs)
+        return loss_aux, grad
 
     # ------------------------------------------------------------------ #
     # Public API (parity: multigrad.py:398-538)
@@ -196,13 +236,18 @@ class OnePointModel:
 
     def run_adam(self, guess, nsteps=100, param_bounds=None,
                  learning_rate=0.01, randkey=None, const_randkey=False,
-                 progress=True):
+                 progress=True, checkpoint_dir=None, checkpoint_every=None):
         """Adam; returns the ``(nsteps+1, ndim)`` parameter trajectory
-        (see :func:`multigrad_tpu_torch.optim.adam.run_adam`)."""
+        (see :func:`multigrad_tpu_torch.optim.adam.run_adam`).  With
+        ``checkpoint_dir`` the fit writes its restart state every
+        ``checkpoint_every`` steps and resumes from it; the model's
+        ``aux_data`` is fingerprinted into the checkpoint."""
         return _adam.run_adam(
             self._fit_loss_and_grad, self._params(guess), nsteps=nsteps,
             param_bounds=param_bounds, learning_rate=learning_rate,
-            randkey=randkey, const_randkey=const_randkey, progress=progress)
+            randkey=randkey, const_randkey=const_randkey, progress=progress,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            data=self.aux_data, comm=self.comm)
 
     def run_bfgs(self, guess, maxsteps=100, param_bounds=None, randkey=None,
                  progress=True):

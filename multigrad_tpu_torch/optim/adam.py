@@ -10,17 +10,32 @@ model).  Per step, ``key, key_i = split_key(key)`` (the reference's
 rank-0 chain); with ``const_randkey`` the initial key is used at every
 step.  The draws differ from ``jax.random``'s, so fits with keys match
 the JAX package in distribution only.
+
+Checkpointing (``checkpoint_dir``): the same host loop runs in segments
+of ``checkpoint_every`` steps, and after each the restart state (step,
+unbounded params, moments, key, trajectory so far) is written to
+``checkpoint_dir/adam_state.npz``, with the fit's configuration and a
+fingerprint of its data inside; the last write holds the trajectory the
+fit returns (bounded, with ``param_bounds``).  A call with the same
+arguments resumes from the last segment written, so a checkpointed fit
+equals the plain one bit for bit; a finished fit is a pure read.
 """
 from __future__ import annotations
 
-from typing import Callable
+import os
+import zlib
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .transforms import (bounds_to_arrays, check_strictly_inside,
                          inverse_transform_array,
                          inverse_transform_diag_jacobian, transform_array)
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import MeshComm
+from ..utils import checkpoint as _ckpt
 from ..utils.util import resolve_device, trange
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -59,7 +74,9 @@ def _wrap_bounded(loss_and_grad, low, high):
 def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
              param_bounds=None, learning_rate: float = 0.01, randkey=None,
              const_randkey: bool = False, progress: bool = True,
-             device=None):
+             device=None, checkpoint_dir: Optional[str] = None,
+             checkpoint_every: Optional[int] = None, data=None,
+             comm: Optional[MeshComm] = None):
     """Adam on ``loss_and_grad(params[, randkey=key]) -> (loss, grad)``.
 
     With ``param_bounds`` (a sequence of ``None | (low, high)``) the loop
@@ -67,6 +84,15 @@ def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
     parameter trajectory, shape ``(nsteps + 1, ndim)``, starting point
     included, on the device of ``guess`` (``device`` for a guess that is
     not a tensor; ``None`` means CUDA).
+
+    With ``checkpoint_dir`` the fit runs in segments of
+    ``checkpoint_every`` steps (default ``max(1, nsteps // 10)``) and
+    writes its restart state after each; a call with the same arguments
+    and ``data`` resumes from it (see the module docstring), and another
+    configuration or other data raises ``ValueError``.  ``data`` is the
+    tree of tensors the loss reads, fingerprinted into the checkpoint;
+    ``comm`` the processes that run the fit together: its rank 0 writes,
+    and every rank reads after a barrier.
     """
     if not isinstance(guess, torch.Tensor):
         guess = torch.as_tensor(np.asarray(guess, np.float32),
@@ -75,20 +101,49 @@ def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
     if const_randkey and randkey is None:
         raise ValueError("Must pass randkey if const_randkey")
     bounded = param_bounds is not None
+    key = None if randkey is None else init_randkey(randkey)
+
+    state, save = None, None
+    if checkpoint_dir is not None:
+        every = max(1, nsteps // 10) if checkpoint_every is None \
+            else int(checkpoint_every)
+        if every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {every}")
+        # Built on the host, so that the read of a finished fit launches
+        # no kernel: the guess, the bounds, the rest of the arguments.
+        bounds = bounds_to_arrays(param_bounds, params.shape[-1], "cpu") \
+            if bounded else ()
+        config = np.concatenate([
+            params.cpu().numpy().astype(np.float64),
+            *[b.numpy().astype(np.float64) for b in bounds],
+            np.asarray([learning_rate, float(bounded), float(key is not None),
+                        float(const_randkey)], np.float64)])
+        config_key = np.asarray([-1 if key is None else key], np.int64)
+        state, traj, save = _resume(checkpoint_dir, params, nsteps, config,
+                                    config_key, data, comm, every)
+        if state is not None and state["step"] == nsteps:
+            # A finished fit: the trajectory it returned, stored as it
+            # was.
+            return traj
+
     fn = loss_and_grad
+    low = high = None
     if bounded:
         low, high = bounds_to_arrays(param_bounds, params.shape[-1],
                                      params.device)
         check_strictly_inside(params, low, high, param_bounds)
         params = transform_array(params, low, high)
         fn = _wrap_bounded(loss_and_grad, low, high)
-    key = None if randkey is None else init_randkey(randkey)
+    if state is None:
+        state = dict(step=0, u=params.clone(), mu=torch.zeros_like(params),
+                     nu=torch.zeros_like(params), key=key)
+        traj = [state["u"]]
 
-    u = params.clone()
-    mu = torch.zeros_like(u)
-    nu = torch.zeros_like(u)
-    traj = [u]
-    for step in trange(nsteps, "Adam Gradient Descent Progress", progress):
+    u, mu, nu, key = state["u"], state["mu"], state["nu"], state["key"]
+    start = state["step"]
+    for i in trange(nsteps - start, "Adam Gradient Descent Progress",
+                    progress):
+        step = start + i
         kwargs = {}
         if key is not None:
             if const_randkey:
@@ -103,5 +158,118 @@ def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
         nu_hat = nu / float(1 - torch.tensor(B2) ** count)
         u = u - learning_rate * (mu_hat / (torch.sqrt(nu_hat) + EPS))
         traj.append(u)
+        if save is not None and step + 1 < nsteps:
+            save(step + 1, u, mu, nu, key, traj)
     traj = torch.stack(traj)
-    return inverse_transform_array(traj, low, high) if bounded else traj
+    if bounded:
+        traj = inverse_transform_array(traj, low, high)
+    if save is not None:
+        save(nsteps, u, mu, nu, key, traj)
+    return traj
+
+
+#: Bytes of a leaf copied to the host at a time for its checksum.
+_DIGEST_CHUNK = 1 << 26
+
+
+def _leaf_entries(tree, path=""):
+    """``(path, shape, dtype, crc32 of every byte)`` for each tensor or
+    array of ``tree`` (dict keys sorted), ``(path, repr)`` for any other
+    leaf.  The bytes reach the host in chunks; no kernel is launched."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree, key=str)
+                for e in _leaf_entries(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [e for i, item in enumerate(tree)
+                for e in _leaf_entries(item, f"{path}/{i}")]
+    if isinstance(tree, np.ndarray):
+        tree = torch.from_numpy(np.ascontiguousarray(tree))
+    if not isinstance(tree, torch.Tensor):
+        return [(path, repr(tree))]
+    flat = tree.detach().contiguous().reshape(-1)
+    raw = flat.view(torch.uint8) if flat.numel() else flat
+    crc = 0
+    for at in range(0, raw.numel(), _DIGEST_CHUNK):
+        crc = zlib.crc32(raw[at:at + _DIGEST_CHUNK].cpu().numpy(), crc)
+    return [(path, tuple(tree.shape), str(tree.dtype), crc)]
+
+
+def _args_fingerprint(data, comm: Optional[MeshComm] = None) -> int:
+    """CRC of the data's leaves (every byte of every tensor); with a comm
+    of several processes, of every process's shard, in rank order."""
+    crc = zlib.crc32(repr(_leaf_entries(data)).encode())
+    if comm is not None and comm.size > 1:
+        crcs = all_gather(torch.tensor([crc], dtype=torch.int64), comm)
+        crc = zlib.crc32(np.asarray(crcs.cpu(), np.int64).tobytes())
+    return crc
+
+
+def _barrier(comm: Optional[MeshComm]):
+    if comm is not None and comm.distributed and comm.size > 1:
+        dist.barrier(group=comm.group)
+
+
+def _resume(checkpoint_dir, params, nsteps, config, config_key, data, comm,
+            every):
+    """The restart state of ``checkpoint_dir`` when it holds one for this
+    fit (raise when it holds another's), else ``None``; the trajectory so
+    far (a list of unbounded rows, or the returned tensor of a finished
+    fit); and the ``save(step, u, mu, nu, key, rows)`` callback of the
+    segment ends, whose ``rows`` are the list of unbounded rows so far or,
+    at the last step, the trajectory tensor the fit returns."""
+    path = os.path.join(checkpoint_dir, "adam_state")
+    config_args = np.asarray([_args_fingerprint(data, comm)], np.uint32)
+    like = dict(step=0, u=params, mu=params, nu=params, key=0,
+                traj=params.new_empty((nsteps + 1,) + tuple(params.shape)),
+                config=config, config_key=config_key,
+                config_args=config_args)
+    _barrier(comm)
+    state, traj = None, None
+    if os.path.exists(path + ".npz"):
+        try:
+            saved = _ckpt.load(path, like)
+        except ValueError as e:
+            raise ValueError(
+                f"cannot resume from checkpoint in {checkpoint_dir!r}: {e} "
+                "(use a fresh checkpoint_dir to start over)") from e
+        if saved["traj"].shape[0] != nsteps + 1:
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir!r} was written for a "
+                "different nsteps; use a fresh checkpoint_dir")
+        if not (np.array_equal(saved["config"], config)
+                and np.array_equal(saved["config_key"], config_key)):
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir!r} was written for a "
+                "different fit configuration (guess/bounds/learning_rate/"
+                "randkey); use a fresh checkpoint_dir")
+        if not np.array_equal(saved["config_args"], config_args):
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir!r} was written for "
+                "different training data (aux-data fingerprint mismatch); "
+                "use a fresh checkpoint_dir")
+        step = saved["step"]
+        state = dict(step=step, u=saved["u"], mu=saved["mu"],
+                     nu=saved["nu"],
+                     key=None if saved["key"] < 0 else saved["key"])
+        traj = saved["traj"] if step == nsteps \
+            else list(saved["traj"][:step + 1].unbind(0))
+    writer = comm is None or comm.rank == 0
+
+    def save(step, u, mu, nu, key, rows):
+        if step % every and step != nsteps:
+            return
+        if writer:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            if isinstance(rows, list):
+                rows = torch.stack(rows)
+            full = rows.new_zeros((nsteps + 1,) + tuple(rows.shape[1:]))
+            full[:rows.shape[0]] = rows
+            _ckpt.save(path, dict(
+                step=np.int64(step), u=u, mu=mu, nu=nu,
+                key=np.int64(-1 if key is None else key), traj=full,
+                config=config, config_key=config_key,
+                config_args=config_args))
+        if step == nsteps:
+            _barrier(comm)
+
+    return state, traj, save

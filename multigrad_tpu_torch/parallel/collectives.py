@@ -4,7 +4,11 @@
 reference / JAX package            this module
 =================================  ====================================
 ``reduce_sum`` / ``lax.psum``      ``torch.distributed.all_reduce``
+``all_gather``                     ``all_gather_into_tensor`` (NCCL) or
+                                   ``all_gather`` (gloo), concatenated
 ``scatter_nd``                     this process's shard of the array
+``scatter_from_local``             this process's own array, shapes
+                                   checked across the comm
 ``lax.ppermute`` (i → i+1 ring)    ``ring_shift`` (``batch_isend_irecv``)
 =================================  ====================================
 """
@@ -24,6 +28,16 @@ def psum(value, comm: Optional[MeshComm] = None):
     return value if comm is None else comm.psum(value)
 
 
+def _on_comm_device(tensor: torch.Tensor, comm: MeshComm) -> torch.Tensor:
+    """``tensor`` where ``comm``'s backend can reduce it: under NCCL,
+    which takes only CUDA tensors, a host tensor goes to the current CUDA
+    device; otherwise it stays where it is."""
+    if (tensor.device.type == "cpu" and comm.distributed
+            and dist.get_backend(comm.group) == "nccl"):
+        return tensor.to(torch.device("cuda", torch.cuda.current_device()))
+    return tensor
+
+
 def reduce_sum(value, root: Optional[int] = None,
                comm: Optional[MeshComm] = None):
     """Sum each process's contribution ``value`` over ``comm``.
@@ -40,10 +54,7 @@ def reduce_sum(value, root: Optional[int] = None,
     is_py_scalar = isinstance(value, (bool, int, float))
     tensor = torch.as_tensor(value)
     home = tensor.device
-    if (home.type == "cpu" and comm.distributed
-            and dist.get_backend(comm.group) == "nccl"):
-        tensor = tensor.to(torch.device("cuda", torch.cuda.current_device()))
-    out = comm.psum(tensor)
+    out = comm.psum(_on_comm_device(tensor, comm))
     return out.item() if is_py_scalar else out.to(home)
 
 
@@ -71,6 +82,64 @@ def scatter_nd(array, axis: int = 0, comm: Optional[MeshComm] = None,
                                    pad_value=pad_value)
     per = array.shape[axis] // comm.size
     return array.narrow(axis, comm.rank * per, per).contiguous()
+
+
+def all_gather(value, comm: Optional[MeshComm] = None, axis: int = 0):
+    """Every process's ``value`` of ``comm``, concatenated along ``axis``
+    in rank order, on every process (the reference's ``comm.allgather``).
+    The values must have one shape.  A host value under NCCL comes back on
+    the card.  The identity for ``comm=None`` or a comm of one process."""
+    tensor = torch.as_tensor(value)
+    if comm is None or comm.size == 1:
+        return tensor
+    tensor = _on_comm_device(tensor, comm).contiguous()
+    if dist.get_backend(comm.group) == "nccl":
+        stacked = torch.empty((comm.size,) + tuple(tensor.shape),
+                              dtype=tensor.dtype, device=tensor.device)
+        dist.all_gather_into_tensor(stacked, tensor, group=comm.group)
+        parts = list(stacked.unbind(0))
+    else:
+        parts = [torch.empty_like(tensor) for _ in range(comm.size)]
+        dist.all_gather(parts, tensor, group=comm.group)
+    return torch.cat([p.reshape(tensor.shape) for p in parts], dim=axis)
+
+
+#: Largest number of dimensions whose shapes ``scatter_from_local`` checks.
+_MAX_DIMS = 16
+
+
+def scatter_from_local(local_array, comm: MeshComm, axis: int = 0):
+    """This process's shard of an array sharded along ``axis`` over
+    ``comm``, from the data this process loaded itself.
+
+    With one process per shard, a process's local array *is* its shard:
+    the reference's per-rank loading (``smf_grad_descent.py:23-28``),
+    where no process holds the whole catalog.  The array comes back as a
+    tensor (on the card under NCCL).  One all-gather of the shapes checks
+    that every process's array has the same number of dimensions and the
+    same shape off ``axis``; a mismatch raises ``ValueError`` on every
+    process.
+    """
+    local = torch.as_tensor(local_array)
+    if comm is None or comm.size == 1:
+        return local
+    local = _on_comm_device(local, comm)
+    if local.dim() > _MAX_DIMS:
+        raise ValueError(f"scatter_from_local: {local.dim()} dimensions, "
+                         f"at most {_MAX_DIMS}")
+    off_axis = list(local.shape)
+    if off_axis:
+        off_axis[axis] = 0
+    row = torch.zeros((1, 1 + _MAX_DIMS), dtype=torch.int64)
+    row[0, 0] = local.dim()
+    row[0, 1:1 + len(off_axis)] = torch.tensor(off_axis, dtype=torch.int64)
+    shapes = all_gather(row, comm).cpu()
+    if not bool((shapes == shapes[0]).all()):
+        got = [tuple(r[1:1 + int(r[0])].tolist()) for r in shapes]
+        raise ValueError(
+            f"scatter_from_local: the local arrays differ off axis {axis} "
+            f"(shapes with axis {axis} set to 0, by rank: {got})")
+    return local
 
 
 def _ring_pass(tensor, comm: MeshComm, shift: int):

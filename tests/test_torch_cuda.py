@@ -405,3 +405,65 @@ def test_wprp_loss_at_truth_on_card(dev):
     model = WprpModel(aux_data=make_wprp_data(8192, box_size=100.0,
                                               device=dev))
     assert float(model.calc_loss_from_params(TRUTH)) < 1e-10
+
+
+# The joint SMF + wp(rp) group on the card (small size): its launches are
+# those of the two solo paths added together, it agrees with the same group
+# on the CPU at the wp(rp) limits (loss and gradient rtol 1e-3, atol
+# 1e-5·max|grad|), and a checkpointed fit equals the plain one bit for bit.
+JOINT_POINT = (-1.8, 0.3, -0.7)
+
+
+def _joint_on(device, like=None):
+    """The joint group at 8,192 + 32,768 halos; with ``like``, the same
+    data moved to ``device``."""
+    from multigrad_tpu_torch.models import make_joint_smf_wprp
+    from multigrad_tpu_torch.models.joint import _joint_group
+    if like is None:
+        return make_joint_smf_wprp(num_halos=8_192, smf_num_halos=32_768,
+                                   device=device)
+    return _joint_group(*({k: (v.to(device) if torch.is_tensor(v) else v)
+                           for k, v in m.aux_data.items()}
+                          for m in like.models))
+
+
+def test_joint_group_launches(dev):
+    from multigrad_tpu_torch.ops import pair_kernels as pk
+    group = _joint_on(dev)
+    wrappers = {"erf_fwd": ek.erf_counts_fwd_cuda,
+                "erf_bwd": ek.erf_counts_bwd_cuda,
+                "pair_fwd": pk.pair_counts_fwd_cuda,
+                "pair_rowgrad": pk.pair_rowgrad_cuda,
+                "pair_bwd": pk.pair_counts_bwd_cuda}
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    group.run_adam(guess=JOINT_POINT, nsteps=3, learning_rate=0.02,
+                   progress=False)
+    torch.cuda.synchronize()
+    assert {k: fn.launches - before[k] for k, fn in wrappers.items()} == {
+        "erf_fwd": 3, "erf_bwd": 3, "pair_fwd": 3, "pair_rowgrad": 3,
+        "pair_bwd": 0}
+
+
+def test_joint_group_on_card_matches_cpu(dev):
+    group = _joint_on(dev)
+    cpu = _joint_on("cpu", like=group)
+    loss_g, grad_g = group.calc_loss_and_grad_from_params(JOINT_POINT)
+    loss_c, grad_c = cpu.calc_loss_and_grad_from_params(JOINT_POINT)
+    np.testing.assert_allclose(float(loss_g), float(loss_c), rtol=1e-3)
+    _assert_close(grad_g, grad_c)
+    # Each member alone too, the wp(rp) one at its own scale.
+    for card_m, cpu_m in zip(group.models, cpu.models):
+        _assert_close(card_m.calc_loss_and_grad_from_params(JOINT_POINT)[1],
+                      cpu_m.calc_loss_and_grad_from_params(JOINT_POINT)[1])
+
+
+def test_joint_checkpointed_fit_equals_plain(dev, tmp_path):
+    group = _joint_on(dev)
+    kwargs = dict(guess=JOINT_POINT, nsteps=10, learning_rate=0.02,
+                  progress=False)
+    plain = group.run_adam(**kwargs)
+    ckpted = group.run_adam(checkpoint_dir=str(tmp_path), checkpoint_every=4,
+                            **kwargs)
+    assert torch.equal(ckpted, plain)
+    assert torch.equal(group.run_adam(checkpoint_dir=str(tmp_path),
+                                      checkpoint_every=4, **kwargs), plain)

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,6 +46,11 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.models.wprp\n"
         "import multigrad_tpu_torch.ops.pair_kernels\n"
         "import multigrad_tpu_torch.ops.pairwise\n"
+        "import multigrad_tpu_torch.core.group\n"
+        "import multigrad_tpu_torch.models.joint\n"
+        "import multigrad_tpu_torch.ingraph\n"
+        "import multigrad_tpu_torch.utils.checkpoint\n"
+        "import multigrad_tpu_torch.utils.debug\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -63,7 +69,12 @@ def test_no_forbidden_import_in_sources():
             os.path.join("models", "galhalo_hist.py"),
             os.path.join("models", "wprp.py"),
             os.path.join("ops", "pair_kernels.py"),
-            os.path.join("ops", "pairwise.py")} <= names
+            os.path.join("ops", "pairwise.py"),
+            os.path.join("core", "group.py"),
+            os.path.join("models", "joint.py"),
+            "ingraph.py",
+            os.path.join("utils", "checkpoint.py"),
+            os.path.join("utils", "debug.py")} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -73,15 +84,19 @@ def test_no_forbidden_import_in_sources():
 @pytest.mark.parametrize("entry", ["make_smf_data", "resolve_device",
                                    "bounds_to_arrays", "make_galhalo_data",
                                    "make_galhalo_hist_data", "make_wprp_data",
-                                   "make_xi_data", "make_galaxy_mock"])
+                                   "make_xi_data", "make_galaxy_mock",
+                                   "make_joint_smf_wprp", "distribute_data",
+                                   "simple_grad_descent"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
+    from multigrad_tpu_torch import ingraph
     from multigrad_tpu_torch.models import (make_galaxy_mock,
                                             make_galhalo_data,
                                             make_galhalo_hist_data,
+                                            make_joint_smf_wprp,
                                             make_smf_data, make_wprp_data,
                                             make_xi_data)
     from multigrad_tpu_torch.optim.transforms import bounds_to_arrays
@@ -94,6 +109,11 @@ def test_default_device_is_cuda(entry):
             "make_wprp_data": lambda: make_wprp_data(100),
             "make_xi_data": lambda: make_xi_data(100),
             "make_galaxy_mock": lambda: make_galaxy_mock(100),
+            "make_joint_smf_wprp": lambda: make_joint_smf_wprp(100),
+            "distribute_data": lambda: ingraph.distribute_data(
+                np.arange(4.0)),
+            "simple_grad_descent": lambda: ingraph.simple_grad_descent(
+                None, lambda dd, p: (p.sum(), p), guess=[0.0], nsteps=1),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
