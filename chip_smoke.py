@@ -67,7 +67,33 @@ order:
     paths' launches added together: no sweep), steps/s, peak memory and a
     profiler window of 3 steps; a checkpointed fit of 10 steps, unbounded
     and within ``JOINT_BOUNDS``, equal to the plain one bit for bit, and a
-    second call a pure read (no kernel launched).
+    second call a pure read (no kernel launched);
+16. the streamed SMF path (``StreamingOnePointModel``: the halos in host
+    memory, chunks through the double-buffered prefetcher's pinned staging
+    and copy stream): at 1,000,003 halos in chunks of 131,072 (a ragged
+    tail), the two-pass loss and gradient with prefetch equal to serial
+    and to the scan path bit for bit, against the resident model
+    (sumstats and loss rtol 1e-5, gradient rtol 1e-4 with atol
+    1e-6·max|grad|) and against the same streamed model on the CPU (loss
+    rtol 1e-4), at most two chunk buffers; at 1e8 halos, chunks of 2^20,
+    2^22 and 2^24, one warm-up and 5 Adam steps each, steps/s, the
+    prefetcher's counters, 2C erf forwards and C backwards a step for C
+    chunks, the trajectory against phase 5's first steps (rtol 1e-4,
+    atol 1e-5) and peak device memory (at 2^22 within 32 bytes a chunk
+    row); prefetch off against on in turns; a profiler window of one
+    streamed step (the H2D copies and the erf kernels with their streams,
+    and how much they overlap); the scan path (the chunk stack resident)
+    for 20 steps, launches counted, its trajectory equal to the two-pass
+    one; a ``.npy`` of the 1e8 halos streamed through ``MemmapSource``
+    for 3 steps, equal to the in-memory run; and the step's floor, its
+    800 MB over the slower of a host copy into pinned memory and a pinned
+    host-to-device copy (256 MB each);
+17. the Fisher matrix (``inference.fisher_information``) of
+    ``SMFChi2Model`` at 32,768 halos on the card against the CPU (rtol
+    1e-3), ``mode="rev"`` equal to ``"fwd"``, symmetric positive
+    definite; at 1e8 halos resident against streamed in chunks of 2^22
+    (rtol 1e-4), seconds for each, launches counted (one forward and 10
+    backwards a pass, per chunk when streamed).
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
@@ -144,6 +170,18 @@ JOINT_BOUNDS = ((-4.0, 0.0), (0.01, 1.0), (-2.0, 0.0))
 JOINT_POINT = (-1.8, 0.3, -0.7)
 JOINT_SMALL = (8_192, 32_768)
 MAX_EDGES_FUSED = 16_384
+# The streamed SMF path (bench.py:463-510 and :905-960): 1e8 halos in host
+# memory, a sweep of chunk sizes, 5 Adam steps from GUESS at 0.02 after one
+# warm-up; the overlap A/B, the scan path and the memmap run at
+# STREAM_CHUNK; correctness at RAGGED_HALOS in chunks of 131,072.  The
+# floor's copies are timed at 256 MB.  The Fisher matrix at 32,768 halos
+# (card against CPU) and at 1e8 (resident against streamed).
+STREAM_CHUNKS = (1 << 20, 1 << 22, 1 << 24)
+STREAM_CHUNK = 1 << 22
+STREAM_SMALL_CHUNK = 131_072
+STREAM_STEPS, SCAN_STEPS, MEMMAP_STEPS = 5, 20, 3
+BOUND_BYTES = 1 << 28
+FISHER_HALOS = 32_768
 
 
 def log(msg):
@@ -164,9 +202,9 @@ def check(ok, what):
 LEAD_IN = 256
 
 
-def device_times(fn):
-    """Device time and launches by kernel name over ``fn()``
-    (torch.profiler), ``{name: (us, launches)}``, and the wall us.  The
+def device_events(fn):
+    """The device events of ``fn()`` in a profiler window (torch.profiler),
+    as ``(name, stream, start us, end us)``, and the wall us.  The
     window's ``LEAD_IN`` spin kernels are left out of both."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -179,20 +217,31 @@ def device_times(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, lead = {}, 0
+    events, lead = [], 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if "spin_kernel" in evt.name:
             lead += 1
             continue
-        us, count = by_name.get(evt.name, (0.0, 0))
-        by_name[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
+        events.append((evt.name, getattr(evt, "device_resource_id", None),
+                       evt.time_range.start, evt.time_range.end))
     if lead < LEAD_IN:
         log(f"profiler window: {LEAD_IN - lead} of the {LEAD_IN} lead-in "
             "events dropped")
     check(lead > 0, f"profiler window: all {LEAD_IN} lead-in events "
           "dropped, so the window's own events may be lost too")
+    return events, wall_us
+
+
+def device_times(fn):
+    """Device time and launches by kernel name over ``fn()``,
+    ``{name: (us, launches)}``, and the wall us (see ``device_events``)."""
+    events, wall_us = device_events(fn)
+    by_name = {}
+    for name, _, start, end in events:
+        us, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + end - start, count + 1)
     return by_name, wall_us
 
 
@@ -231,6 +280,344 @@ def profile_steps(model, nsteps, guess=GUESS, learning_rate=0.02):
         log(f"  {us / nsteps / 1e3:.4f} ms/step, {count / nsteps:g} "
             f"launches/step: {name[:100]}")
     return by_name
+
+
+def union_us(spans):
+    """The merged intervals of ``spans`` ``[(start, end)]``."""
+    merged = []
+    for start, end in sorted(spans):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    return merged
+
+
+def overlap_us(a, b):
+    """Time (us) inside both unions of intervals."""
+    total = 0.0
+    for start, end in a:
+        for s, e in b:
+            total += max(0.0, min(end, e) - max(start, s))
+    return total
+
+
+def streamed_phase(reset_launches, read_launches, wrappers, smf_traj):
+    """Phase 16, the streamed SMF path (``data/streaming.py``), through
+    ``StreamingOnePointModel``.  Returns what the kernel rows and the
+    summary read."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.data import MemmapSource, StreamingOnePointModel
+    from multigrad_tpu_torch.models import SMFModel, make_smf_data
+    dev = torch.device("cuda")
+    out = {}
+
+    def streamed(aux, stream, chunk_rows, **kwargs):
+        return StreamingOnePointModel(
+            model=SMFModel(aux_data=aux),
+            streams={"log_halo_masses": stream}, chunk_rows=chunk_rows,
+            **kwargs)
+
+    def split(model):
+        """A model's resident aux (all but the halos) and its halos as a
+        numpy array on the host."""
+        aux = {k: v for k, v in model.aux_data.items()
+               if k != "log_halo_masses"}
+        return aux, model.aux_data["log_halo_masses"].cpu().numpy()
+
+    def rtol_excess(got, want, rtol, atol=0.0):
+        return float(((got - want).abs() - rtol * want.abs() - atol).max())
+
+    # Correctness at RAGGED_HALOS in chunks of STREAM_SMALL_CHUNK: a
+    # ragged tail of inf pads.
+    resident = SMFModel(aux_data=make_smf_data(RAGGED_HALOS))
+    aux, log_mh = split(resident)
+    y_r = resident.calc_sumstats_from_params(GUESS)
+    loss_r, grad_r = resident.calc_loss_and_grad_from_params(GUESS)
+    pf = streamed(aux, log_mh, STREAM_SMALL_CHUNK)
+    serial = streamed(aux, log_mh, STREAM_SMALL_CHUNK, prefetch=False)
+    n_small = pf.plan().n_chunks
+    y_s = pf.calc_sumstats_from_params(GUESS)
+    lg_pf = pf.calc_loss_and_grad_from_params(GUESS)
+    stats = pf.last_stats
+    lg_serial = serial.calc_loss_and_grad_from_params(GUESS)
+    lg_scan = pf.calc_loss_and_grad_scan(GUESS)
+    cpu_aux = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in aux.items()}
+    loss_c, _ = streamed(cpu_aux, log_mh, STREAM_SMALL_CHUNK) \
+        .calc_loss_and_grad_from_params(GUESS)
+    log(f"streamed at {RAGGED_HALOS:,} halos, {n_small} chunks of "
+        f"{STREAM_SMALL_CHUNK:,} (last {pf.plan().chunks[-1].rows:,} rows + "
+        f"{pf.plan().pad_rows:,} inf pads): loss {float(lg_pf[0]):.7g} "
+        f"(resident {float(loss_r):.7g}, CPU {float(loss_c):.7g}), grad "
+        f"{lg_pf[1].tolist()} (resident {grad_r.tolist()}); "
+        f"{stats.summary()}")
+    check(all(torch.equal(a, b) for a, b in zip(lg_pf, lg_serial)),
+          "streamed loss and gradient with prefetch differ from serial")
+    check(all(torch.equal(a, b) for a, b in zip(lg_pf, lg_scan)),
+          "the scan path differs from the two-pass path")
+    check(rtol_excess(y_s, y_r, 1e-5) <= 0,
+          "streamed sumstats differ from resident beyond rtol 1e-5")
+    check(rtol_excess(lg_pf[0], loss_r, 1e-5) <= 0,
+          "streamed loss differs from resident beyond rtol 1e-5")
+    check(rtol_excess(lg_pf[1], grad_r, 1e-4,
+                      1e-6 * float(grad_r.abs().max())) <= 0,
+          "streamed gradient differs from resident beyond rtol 1e-4")
+    check(abs(float(lg_pf[0]) - float(loss_c)) <= 1e-4 * abs(float(loss_c)),
+          "streamed loss on the card differs from the CPU beyond rtol 1e-4")
+    check(stats.max_live_buffers <= 2 and stats.chunks == 2 * n_small,
+          f"streamed counters: {stats.summary()}")
+    out["small_err"] = dict(loss=abs(float(lg_pf[0]) - float(loss_r)),
+                            grad=float((lg_pf[1] - grad_r).abs().max()),
+                            cpu=abs(float(lg_pf[0]) - float(loss_c)))
+    log("streamed: prefetch on = off = scan bit for bit; against resident "
+        f"{out['small_err']}")
+    del resident, pf, serial, y_r, loss_r, grad_r
+    torch.cuda.empty_cache()
+
+    # The full-width path at BIG_HALOS: the halos in host memory.
+    big = SMFModel(aux_data=make_smf_data(BIG_HALOS))
+    aux, log_big = split(big)
+    del big
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zeros = dict.fromkeys(wrappers, 0)
+
+    def timed_fit(sm, nsteps, **kwargs):
+        """A warm-up step, then ``nsteps`` Adam steps counted: (steps/s,
+        trajectory, launches, peak device bytes above those allocated
+        before the warm-up, which makes the staging buffers)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sm.run_adam(guess=GUESS, nsteps=1, learning_rate=0.02,
+                    progress=False, **kwargs)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        traj = sm.run_adam(guess=GUESS, nsteps=nsteps, learning_rate=0.02,
+                           progress=False, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(tuple(traj.shape) == (nsteps + 1, 2)
+              and bool(torch.isfinite(traj).all()),
+              "streamed trajectory not finite or of the wrong shape")
+        return nsteps / seconds, traj, launches, peak
+
+    sweep = {}
+    for chunk in STREAM_CHUNKS:
+        sm = streamed(aux, log_big, chunk)
+        c = sm.plan().n_chunks
+        sps, traj, launches, peak = timed_fit(sm, STREAM_STEPS)
+        summary = sm.last_stats.summary()
+        log(f"streamed {BIG_HALOS:,} halos in {c} chunks of {chunk:,}: "
+            f"{sps:.4f} steps/s ({STREAM_STEPS} steps after one warm-up); "
+            f"peak {peak / 1e6:.3f} MB above the start ({peak / chunk:.2f} "
+            f"B a chunk row); launches {launches}; last step {summary}")
+        check(launches == zeros | {"erf_counts_fwd": 2 * c * STREAM_STEPS,
+                                   "erf_counts_bwd": c * STREAM_STEPS},
+              f"launches on the streamed path: {launches}")
+        # The resident fit's first steps (phase 5), to Adam's summation
+        # order (the reference test's limits).
+        check(bool(torch.allclose(traj, smf_traj, rtol=1e-4, atol=1e-5)),
+              f"streamed trajectory {traj.tolist()} differs from the "
+              f"resident {smf_traj.tolist()}")
+        sweep[chunk] = dict(sps=sps, traj=traj, launches=launches,
+                            peak=peak, n_chunks=c, summary=summary)
+    check(sweep[STREAM_CHUNK]["peak"] <= 32 * STREAM_CHUNK,
+          f"streamed peak {sweep[STREAM_CHUNK]['peak']} B above 32 B a "
+          f"chunk row at {STREAM_CHUNK:,}")
+    out["sweep"] = sweep
+
+    # Prefetch on against off, in turns, at STREAM_CHUNK.
+    ab = []
+    for prefetch in (False, True, False):
+        sm = streamed(aux, log_big, STREAM_CHUNK, prefetch=prefetch)
+        sps, traj, _, _ = timed_fit(sm, STREAM_STEPS)
+        check(torch.equal(traj, sweep[STREAM_CHUNK]["traj"]),
+              "the serial streamed fit differs from the prefetched one")
+        passes = {name: p["overlap_frac"] for name, p in
+                  sm.last_stats.pass_summary().items()}
+        ab.append((prefetch, sps, passes))
+        log(f"overlap A/B at {STREAM_CHUNK:,}: prefetch {prefetch}: "
+            f"{sps:.4f} steps/s, overlap_frac by pass {passes}")
+    out["ab"] = ab
+
+    # One streamed step in a profiler window: the host-to-device copies
+    # and the erf kernels, with their streams.
+    sm = streamed(aux, log_big, STREAM_CHUNK)
+    params = torch.tensor(GUESS, device=dev)  # no copy of it in the window
+    sm.calc_loss_and_grad_from_params(params)
+    events, wall_us = device_events(
+        lambda: sm.calc_loss_and_grad_from_params(params))
+    copies = [e for e in events if "HtoD" in e[0]]
+    kernels = [e for e in events if "erf_" in e[0]]
+    copy_u = union_us([(e[2], e[3]) for e in copies])
+    kern_u = union_us([(e[2], e[3]) for e in kernels])
+    busy_u = union_us([(e[2], e[3]) for e in events])
+    copy_ms = sum(e - s for s, e in copy_u) / 1e3
+    kern_ms = sum(e - s for s, e in kern_u) / 1e3
+    busy_ms = sum(e - s for s, e in busy_u) / 1e3
+    both_ms = overlap_us(copy_u, kern_u) / 1e3
+    copy_streams = sorted({str(e[1]) for e in copies})
+    kern_streams = sorted({str(e[1]) for e in kernels})
+    window = dict(copies=len(copies), copy_ms=copy_ms,
+                  copy_streams=copy_streams, kernels=len(kernels),
+                  kernel_ms=kern_ms, kernel_streams=kern_streams,
+                  overlap_ms=both_ms, busy_ms=busy_ms,
+                  wall_ms=wall_us / 1e3,
+                  other=sorted({e[0][:50] for e in events
+                                if e not in copies and e not in kernels}))
+    log(f"profiled streamed step at {STREAM_CHUNK:,}: {window}")
+    log("the H2D copies " + ("overlap" if both_ms > 0 else "do not overlap")
+        + f" the erf kernels ({both_ms:.4f} ms of {copy_ms:.4f} ms of "
+        f"copies); the card is busy {busy_ms:.4f} of {wall_us / 1e3:.4f} "
+        "ms")
+    check(len(copies) == 2 * sweep[STREAM_CHUNK]["n_chunks"],
+          f"{len(copies)} host-to-device copies in one streamed step")
+    check(not (set(copy_streams) & set(kern_streams)) or copy_streams == [
+        "None"], f"copies and kernels on one stream: {window}")
+    out["window"] = window
+    del sm
+
+    # The scan path: the chunk stack resident, SCAN_STEPS steps.
+    sm = streamed(aux, log_big, STREAM_CHUNK)
+    c = sm.plan().n_chunks
+    sps, traj, launches, _ = timed_fit(sm, SCAN_STEPS, use_scan=True)
+    log(f"scan path at {BIG_HALOS:,} halos, {c} resident chunks of "
+        f"{STREAM_CHUNK:,}: {sps:.4f} steps/s ({SCAN_STEPS} steps); "
+        f"launches {launches}")
+    check(launches == zeros | {"erf_counts_fwd": 2 * c * SCAN_STEPS,
+                               "erf_counts_bwd": c * SCAN_STEPS},
+          f"launches on the scan path: {launches}")
+    check(torch.equal(traj[:STREAM_STEPS + 1], sweep[STREAM_CHUNK]["traj"]),
+          "the scan path's trajectory differs from the two-pass one")
+    out["scan"] = dict(sps=sps, launches=launches)
+    del sm
+    torch.cuda.empty_cache()
+
+    # MemmapSource: the catalog as a .npy file, streamed off the mapping.
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "log_halo_masses.npy")
+        t0 = time.perf_counter()
+        np.save(path, log_big)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        traj = streamed(aux, MemmapSource(path), STREAM_CHUNK).run_adam(
+            guess=GUESS, nsteps=MEMMAP_STEPS, learning_rate=0.02,
+            progress=False)
+        torch.cuda.synchronize()
+        mm_s = time.perf_counter() - t0
+    log(f"memmap: {BIG_HALOS:,} halos written as .npy in {write_s:.3f} s; "
+        f"{MEMMAP_STEPS} streamed steps off the mapping in {mm_s:.3f} s")
+    check(torch.equal(traj, sweep[STREAM_CHUNK]["traj"][:MEMMAP_STEPS + 1]),
+          "the memmap trajectory differs from the in-memory one")
+    out["memmap"] = dict(write_s=write_s, sps=MEMMAP_STEPS / mm_s)
+
+    # The step's floor: 2 passes of 4 bytes a halo over the slower of a
+    # host copy into pinned memory and a pinned host-to-device copy.
+    host = torch.empty(BOUND_BYTES // 4, dtype=torch.float32,
+                       pin_memory=True)
+    dst = torch.empty(BOUND_BYTES // 4, dtype=torch.float32, device=dev)
+    src = log_big[:BOUND_BYTES // 4]
+    copy_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.copyto(host.numpy(), src)
+        copy_s.append(time.perf_counter() - t0)
+    h2d_ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(host, non_blocking=True)
+        stop.record()
+        stop.synchronize()
+        h2d_ms.append(start.elapsed_time(stop))
+    copy_rate = BOUND_BYTES / statistics.median(copy_s)
+    h2d_rate = BOUND_BYTES / (statistics.median(h2d_ms) / 1e3)
+    step_bytes = 2 * 4 * BIG_HALOS
+    floor_s = step_bytes / min(copy_rate, h2d_rate)
+    out["bound"] = dict(copy_gbs=copy_rate / 1e9, h2d_gbs=h2d_rate / 1e9,
+                        floor_s=floor_s)
+    log(f"bound: np.copyto into pinned memory {copy_rate / 1e9:.3f} GB/s, "
+        f"pinned host-to-device {h2d_rate / 1e9:.3f} GB/s (256 MB, median "
+        f"of 3); a streamed step's {step_bytes / 1e6:.0f} MB take at least "
+        f"{floor_s:.4f} s = {1 / floor_s:.3f} steps/s")
+    del host, dst
+    return out
+
+
+def fisher_phase(reset_launches, read_launches, wrappers):
+    """Phase 17, the Fisher matrix (``inference/fisher.py``), resident and
+    streamed."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.data import StreamingOnePointModel
+    from multigrad_tpu_torch.inference import fisher_information
+    from multigrad_tpu_torch.models import (SMFChi2Model, aux_from_numpy,
+                                            make_smf_data)
+    out = {}
+    arrays = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+              for k, v in make_smf_data(FISHER_HALOS).items()}
+    card = SMFChi2Model(aux_data=aux_from_numpy(arrays, device="cuda"))
+    cpu = SMFChi2Model(aux_data=aux_from_numpy(arrays, device="cpu"))
+    f_card = fisher_information(card, TRUTH).fisher
+    f_cpu = fisher_information(cpu, TRUTH).fisher
+    f_rev = fisher_information(card, TRUTH, mode="rev").fisher
+    err = float(((f_card.cpu() - f_cpu).abs() - 1e-3 * f_cpu.abs()).max())
+    log(f"Fisher at {FISHER_HALOS:,} halos: card {f_card.tolist()}, CPU "
+        f"{f_cpu.tolist()}")
+    check(err <= 0, "the card's Fisher differs from the CPU's beyond rtol "
+          "1e-3")
+    check(torch.equal(f_rev, f_card), "Fisher mode='rev' differs from 'fwd'")
+    check(torch.equal(f_card, f_card.T)
+          and bool((torch.linalg.eigvalsh(f_card.double()) > 0).all()),
+          "the Fisher matrix is not symmetric positive definite")
+    del card, cpu
+
+    aux = make_smf_data(BIG_HALOS)
+    resident = SMFChi2Model(aux_data=aux)
+    streamed_aux = {k: v for k, v in aux.items() if k != "log_halo_masses"}
+    sm = StreamingOnePointModel(
+        model=SMFChi2Model(aux_data=streamed_aux),
+        streams={"log_halo_masses": aux["log_halo_masses"].cpu().numpy()},
+        chunk_rows=STREAM_CHUNK)
+    c = sm.plan().n_chunks
+    zeros = dict.fromkeys(wrappers, 0)
+    results = {}
+    for label, model, want in (
+            ("resident", resident, {"erf_counts_fwd": 1,
+                                    "erf_counts_bwd": 10}),
+            ("streamed", sm, {"erf_counts_fwd": c,
+                              "erf_counts_bwd": 10 * c})):
+        fisher_information(model, TRUTH)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        fr = fisher_information(model, TRUTH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        check(launches == zeros | want,
+              f"launches of the {label} Fisher: {launches}")
+        results[label] = (fr, seconds, launches)
+        log(f"Fisher at {BIG_HALOS:,} halos, {label}: {seconds:.4f} s; "
+            f"{fr.fisher.tolist()}; launches {launches}")
+    f_res, f_str = results["resident"][0].fisher, results["streamed"][0].fisher
+    check(float(((f_str - f_res).abs() - 1e-4 * f_res.abs()).max()) <= 0,
+          "the streamed Fisher differs from the resident beyond rtol 1e-4")
+    out.update(small_err=float((f_card.cpu() - f_cpu).abs().max()),
+               resident_s=results["resident"][1],
+               streamed_s=results["streamed"][1],
+               launches_streamed=results["streamed"][2], n_chunks=c,
+               stream_err=float((f_str - f_res).abs().max()))
+    return out
 
 
 def main():
@@ -483,6 +870,7 @@ def main():
     check(not wide_mul, f"N-wide multiplies on the SMF path: {wide_mul}")
     log("SMF profile: one erf_fwd_kernel and one erf_bwd_kernel a step, "
         "no sum_rows_kernel, no N-wide multiply")
+    smf_traj = traj[:STREAM_STEPS + 1].clone()  # phase 16's reference
     del model, aux, traj
 
     # 6. recovery at 1e6 halos -----------------------------------------
@@ -1294,6 +1682,17 @@ def main():
     del joint, traj, plain, ckpted, again
     torch.cuda.empty_cache()
 
+    # 16. the streamed SMF path -----------------------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 16")
+    stream = streamed_phase(reset_launches, read_launches, wrappers,
+                            smf_traj)
+    torch.cuda.empty_cache()
+
+    # 17. the Fisher matrix ---------------------------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 17")
+    fisher = fisher_phase(reset_launches, read_launches, wrappers)
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
@@ -1389,6 +1788,16 @@ def main():
                 "device_ms_joint": kernel_device_ms(joint_profile, stem,
                                                    flag)}
 
+    def on_streamed(name):
+        """The streamed paths' launches of a kernel: the two-pass fit's
+        timed steps at STREAM_CHUNK, the scan path's, and the streamed
+        Fisher matrix's."""
+        return {"launches_streamed":
+                stream["sweep"][STREAM_CHUNK]["launches"][name],
+                "launches_scan": stream["scan"]["launches"][name],
+                "launches_fisher_streamed":
+                fisher["launches_streamed"][name]}
+
     smf_path = f"SMF, {BIG_HALOS:,} halos, 20 Adam steps"
     hist_run = f"{BIG_HALOS:,} halos, {HIST_STEPS} Adam steps"
     kernels = [
@@ -1396,12 +1805,14 @@ def main():
             (fwd_bound, fwd_by),
             kernel_device_ms(smf_profile, "erf_fwd_kernel", "false"),
             "erf_counts.cu")
-        | on_joint("erf_counts_fwd", "erf_fwd_kernel", "false"),
+        | on_joint("erf_counts_fwd", "erf_fwd_kernel", "false")
+        | on_streamed("erf_counts_fwd"),
         row("erf_counts_bwd", 237, smf_launches, smf_path, big, "bwd",
             (bwd_bound, bwd_by),
             kernel_device_ms(smf_profile, "erf_bwd_kernel", "false"),
             "erf_counts.cu")
-        | on_joint("erf_counts_bwd", "erf_bwd_kernel", "false"),
+        | on_joint("erf_counts_bwd", "erf_bwd_kernel", "false")
+        | on_streamed("erf_counts_bwd"),
         row("erf_counts_fwd_vec", 201, dense_launches,
             f"history dense, {hist_run}", vec_1e6, "fwd", fwd_vec_bound,
             kernel_device_ms(dense_profile, "erf_fwd_kernel", "true"),
@@ -1442,6 +1853,14 @@ def main():
           f"a kernel was not launched on its path: {kernels}")
     log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
         "at 1e8 + 1e5 halos")
+    log("streamed SMF at 1e8: " + ", ".join(
+        f"{v['sps']:.4f} steps/s in chunks of {k:,}"
+        for k, v in stream["sweep"].items())
+        + f"; scan path {stream['scan']['sps']:.4f} steps/s; floor "
+        f"{1 / stream['bound']['floor_s']:.3f} steps/s; peak "
+        f"{stream['sweep'][STREAM_CHUNK]['peak'] / 1e6:.3f} MB at "
+        f"{STREAM_CHUNK:,}; Fisher {fisher['resident_s']:.4f} s resident, "
+        f"{fisher['streamed_s']:.4f} s streamed")
     log(f"done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

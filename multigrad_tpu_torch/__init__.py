@@ -10,7 +10,11 @@ Its entry points run on the card: ``device=None`` means ``"cuda"``.
 Several models fit jointly through ``OnePointGroup`` (``param_view``
 gives each a slice of the joint parameters; ``models.joint`` builds the
 joint SMF + wp(rp) fit), and Adam checkpoints and resumes
-(``checkpoint_dir``).  The hot op, the erf-CDF binned counts of the SMF
+(``checkpoint_dir``).  ``data`` streams catalogs larger than the card
+through a fit in chunks (``StreamingOnePointModel``, exact two-pass
+loss and gradient, a double-buffered prefetcher over pinned memory and
+a copy stream); ``inference`` gives Fisher matrices, resident or
+streamed.  The hot op, the erf-CDF binned counts of the SMF
 and galaxy–halo models, runs as hand-written CUDA kernels on CUDA tensors and as their
 plain PyTorch versions on CPU tensors: the dense counts with a scalar or
 a per-particle sigma (``csrc/erf_counts.cu``) and the fused windowed
@@ -32,6 +36,12 @@ from .optim.transforms import (apply_inverse_transforms,  # noqa: F401
 from .utils import util  # noqa: F401
 from .utils.util import (GradDescentResult,  # noqa: F401
                          latin_hypercube_sampler, simple_grad_descent)
+from . import data  # noqa: F401
+from .data import (ArraySource, CatalogSource,  # noqa: F401
+                   ChunkPrefetcher, MemmapSource, NpzSource,
+                   StreamingOnePointModel)
+from . import inference  # noqa: F401
+from .inference import FisherResult, fisher_information  # noqa: F401
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
@@ -41,4 +51,7 @@ __all__ = [
     "latin_hypercube_sampler",
     "transform", "inverse_transform", "apply_transforms",
     "apply_inverse_transforms", "init_randkey", "gen_new_key",
+    "data", "StreamingOnePointModel", "CatalogSource", "ArraySource",
+    "NpzSource", "MemmapSource", "ChunkPrefetcher",
+    "inference", "FisherResult", "fisher_information",
 ]

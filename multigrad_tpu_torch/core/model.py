@@ -22,11 +22,16 @@ size of the data.  Each process holds its own shard (see
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..optim import adam as _adam
 from ..optim import bfgs as _bfgs
@@ -48,6 +53,106 @@ def _first_tensor(tree):
     return None
 
 
+def psum_joined(tensors, comm):
+    """The sums over ``comm`` of ``tensors`` in ONE all-reduce: flattened,
+    joined, reduced and split back, each to its own shape and dtype (one
+    tensor is reduced as it is; ``comm=None`` is the identity)."""
+    tensors = list(tensors)
+    if comm is None or not tensors:
+        return tensors
+    if len(tensors) == 1:
+        return [psum(tensors[0], comm)]
+    dtype = functools.reduce(torch.promote_types,
+                             [t.dtype for t in tensors])
+    flat = psum(torch.cat([t.reshape(-1).to(dtype) for t in tensors]), comm)
+    return [part.reshape(t.shape).to(t.dtype) for t, part in zip(
+        tensors, flat.split([t.numel() for t in tensors]))]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts, lists,
+    tuples and named tuples of leaves; ``None`` is an empty subtree)."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        out = [tree_map(fn, *items) for items in zip(*trees)]
+        return type(first)(*out) if hasattr(first, "_fields") \
+            else type(first)(out)
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def psum_tree(tree, comm):
+    """A tree of tensors summed over ``comm`` in one all-reduce."""
+    summed = iter(psum_joined(tree_leaves(tree), comm))
+    return tree_map(lambda _: next(summed), tree)
+
+
+#: The streamed scan path's remat policies (the JAX package's
+#: ``REMAT_POLICY_NAMES``): what a chunk's checkpointed forward saves for
+#: the backward pass, the rest being recomputed there.
+REMAT_POLICY_NAMES = ("nothing", "dots", "dots_with_no_batch_dims",
+                      "everything")
+_MATMULS = ("mm", "addmm", "mv", "addmv", "dot", "vdot")
+_BATCHED_MATMULS = ("bmm", "baddbmm")
+
+
+def _saving(names):
+    """A selective-checkpoint policy that saves the outputs of the aten
+    ops ``names`` and recomputes every other op."""
+    packets = {getattr(torch.ops.aten, name) for name in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in packets
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def resolve_remat_policy(policy):
+    """How the streamed scan path runs one chunk's forward, ``run(fn, p)
+    -> fn(p)``, under ``policy`` (the JAX package's ``jax.checkpoint``
+    policies, as ``torch.utils.checkpoint``):
+
+    * ``None`` / ``"nothing"``: a checkpoint that saves nothing; the
+      backward recomputes the whole chunk;
+    * ``"dots"``: a selective checkpoint that saves matrix products (the
+      ``aten.mm``/``bmm``/``addmm`` family) and recomputes the rest;
+      ``"dots_with_no_batch_dims"`` the same without ``bmm``/``baddbmm``;
+    * ``"everything"``: no checkpoint; every chunk's graph is kept for
+      the one backward pass;
+    * a callable: taken as a selective-checkpoint policy
+      ``(ctx, op, *args, **kwargs) -> CheckpointPolicy``.
+    """
+    if policy == "everything":
+        return lambda fn, p: fn(p)
+    if policy is None or policy == "nothing":
+        context_fn = noop_context_fn
+    else:
+        if callable(policy):
+            rule = policy
+        elif policy in ("dots", "dots_with_no_batch_dims"):
+            rule = _saving(_MATMULS + (_BATCHED_MATMULS if policy == "dots"
+                                       else ()))
+        else:
+            raise ValueError(
+                f"unknown remat_policy {policy!r}; expected None, one of "
+                f"{REMAT_POLICY_NAMES}, or a selective-checkpoint policy "
+                "callable")
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       rule)
+    return lambda fn, p: checkpoint(fn, p, use_reentrant=False,
+                                    context_fn=context_fn)
+
+
 def joint_loss_and_grad(models, comm, params, kwargs):
     """The two-stage chain rule over ``models`` that share ``comm`` or have
     ``comm=None``, all reading ``params``.
@@ -66,15 +171,9 @@ def joint_loss_and_grad(models, comm, params, kwargs):
         shared = [i for i, m in enumerate(models) if m.comm is not None]
         local = [i for i, m in enumerate(models) if m.comm is None]
         totals = [y.detach() for y, _ in outs]
-        if len(shared) == 1:
-            totals[shared[0]] = psum(totals[shared[0]], comm)
-        elif shared:
-            flat = psum(torch.cat([totals[i].reshape(-1) for i in shared]),
-                        comm)
-            for i, part in zip(shared, flat.split(
-                    [totals[i].numel() for i in shared])):
-                totals[i] = part.reshape(totals[i].shape).to(
-                    totals[i].dtype)
+        for i, total in zip(shared, psum_joined([totals[i] for i in shared],
+                                                comm)):
+            totals[i] = total
         losses, cotangents = [], []
         for m, (_, ss_aux), y in zip(models, outs, totals):
             y = y.requires_grad_(True)
@@ -221,6 +320,164 @@ class OnePointModel:
         (loss, _), grad = self._loss_and_grad(params,
                                               self._key_kwargs(randkey))
         return loss, grad
+
+    def _sumstats_and_jac(self, params, kwargs):
+        """This process's partial sumstats and their ``(*y, ndim)``
+        Jacobian, in reverse mode: one ``torch.autograd.grad`` row a
+        sumstat over one retained graph (the kernels' autograd Functions
+        carry a backward and no forward-mode rule)."""
+        p = params.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y, _ = self._sumstats(p, kwargs)
+            flat = y.reshape(-1)
+            rows = []
+            for i in range(flat.shape[0]):
+                (row,) = torch.autograd.grad(
+                    flat[i], p, retain_graph=i + 1 < flat.shape[0],
+                    allow_unused=True)
+                rows.append(torch.zeros_like(p) if row is None else row)
+        return y.detach(), torch.stack(rows).reshape(
+            *y.shape, p.shape[-1])
+
+    def calc_sumstats_and_jac_from_params(self, params, randkey=None,
+                                          mode: str = "fwd"):
+        """Total sumstats and their Jacobian with respect to ``params``:
+        shapes ``(*y,)`` and ``(*y, ndim)``, summed over the comm in one
+        all-reduce of both joined (``J = Σ_r ∂y_r/∂p``).  Sumstats aux
+        values (if any) are dropped; fetch them with
+        :meth:`calc_sumstats_from_params`.
+
+        ``mode`` (``"fwd"`` or ``"rev"``) is the JAX package's choice of
+        ``jacfwd`` or ``jacrev``; both give the same numbers here, where
+        the Jacobian is always taken in reverse mode, one backward pass a
+        sumstat (10 for the SMF model).
+        """
+        if mode not in ("fwd", "rev"):
+            raise ValueError(f"mode must be 'fwd' or 'rev', got {mode!r}")
+        y, jac = self._sumstats_and_jac(self._params(params),
+                                        self._key_kwargs(randkey))
+        y, jac = psum_joined((y, jac), self.comm)
+        return y, jac
+
+    # ------------------------------------------------------------------ #
+    # Aux re-binding and the chunk programs of the streamed paths
+    # (parity: core/model.py:650-883 of the JAX package)
+    # ------------------------------------------------------------------ #
+    def replace_aux(self, **updates):
+        """A new model whose ``aux_data`` has ``updates`` rebound; the
+        model is left as it was.  Requires dict aux_data."""
+        if not isinstance(self.aux_data, dict):
+            raise TypeError(
+                "replace_aux needs dict aux_data, got "
+                f"{type(self.aux_data).__name__}")
+        return dataclasses.replace(
+            self, aux_data={**self.aux_data, **updates})
+
+    def _with_chunk(self, stream_names, chunk):
+        """This model with a chunk's streamed tensors bound under
+        ``stream_names`` in its (resident) dict aux, so that the sumstats
+        method reads ``self.aux_data[name]`` as it does resident."""
+        if not isinstance(self.aux_data, dict):
+            raise TypeError(
+                "streaming requires dict aux_data (stream leaves are "
+                f"rebound by key), got {type(self.aux_data).__name__}")
+        return dataclasses.replace(
+            self, aux_data={**self.aux_data, **dict(zip(stream_names,
+                                                        chunk))})
+
+    def chunk_sumstats_fn(self, stream_names, with_key: bool = False):
+        """``program(params, chunk, key=None)``: this process's partial
+        sumstats of one chunk (``(y, aux)`` with ``sumstats_func_has_aux``;
+        the aux must be additive).  ``chunk`` lists the chunk's tensors in
+        ``stream_names`` order.  The streamed model adds the chunks'
+        partials up on the device and sums the total over the comm once."""
+        names = tuple(stream_names)
+
+        @torch.no_grad()
+        def program(params, chunk, key=None):
+            kwargs = {"randkey": key} if with_key else {}
+            return self._with_chunk(names, chunk) \
+                .calc_partial_sumstats_from_params(params, **kwargs)
+        return program
+
+    def chunk_vjp_fn(self, stream_names, with_key: bool = False):
+        """``program(params, chunk, ct, key=None)``: this process's part
+        of ``dL/dparams`` from one chunk, the VJP of its partial sumstats
+        against the total's cotangent ``ct = dL/dy`` (pass 2 of the
+        streamed chain rule; no all-reduce)."""
+        names = tuple(stream_names)
+
+        def program(params, chunk, ct, key=None):
+            kwargs = {"randkey": key} if with_key else {}
+            model = self._with_chunk(names, chunk)
+            p = params.detach().requires_grad_(True)
+            with torch.enable_grad():
+                y, _ = model._sumstats(p, kwargs)
+                (grad,) = torch.autograd.grad(y, p, grad_outputs=ct)
+            return grad
+        return program
+
+    def chunk_jac_fn(self, stream_names, with_key: bool = False):
+        """``program(params, chunk, key=None) -> (y, J)``: this process's
+        partial sumstats of one chunk and their Jacobian (reverse mode,
+        see :meth:`calc_sumstats_and_jac_from_params`)."""
+        names = tuple(stream_names)
+
+        def program(params, chunk, key=None):
+            kwargs = {"randkey": key} if with_key else {}
+            return self._with_chunk(names, chunk)._sumstats_and_jac(
+                params, kwargs)
+        return program
+
+    def chunk_scan_loss_and_grad_fn(self, stream_names,
+                                    with_key: bool = False,
+                                    remat_policy="dots"):
+        """``program(params, stacks, key=None) -> (loss, grad)``: the
+        whole two-stage chain rule over chunks resident on the device,
+        ``stacks`` one ``(n_chunks, rows, ...)`` tensor a stream.
+
+        Each chunk's forward runs under ``remat_policy`` (see
+        :func:`resolve_remat_policy`; the default saves matrix products
+        and recomputes the rest) from a leaf copy of ``params`` of its
+        own; the partial sumstats add up in chunk order; their total (and
+        any additive sumstats aux) is summed over the comm in one
+        all-reduce; ``dL/dy`` is taken from it; one backward pass runs
+        every chunk's VJP against it, recomputing one chunk at a time
+        where the policy saved nothing; the chunks' gradients add up in
+        chunk order and are summed over the comm in a second all-reduce.
+        So no chunk's recomputed graph outlives its chunk, and the loss
+        and gradient equal the two-pass streamed ones bit for bit.
+        """
+        names = tuple(stream_names)
+        run = resolve_remat_policy(remat_policy)
+
+        def program(params, stacks, key=None):
+            kwargs = {"randkey": key} if with_key else {}
+            leaves = [params.detach().requires_grad_(True)
+                      for _ in range(stacks[0].shape[0])]
+            with torch.enable_grad():
+                total = None
+                for k, p in enumerate(leaves):
+                    model = self._with_chunk(names, [s[k] for s in stacks])
+                    out = run(functools.partial(
+                        model.calc_partial_sumstats_from_params, **kwargs),
+                        p)
+                    total = out if total is None else tree_map(
+                        torch.add, total, out)
+                y, ss_aux = total if self.sumstats_func_has_aux \
+                    else (total, None)
+                y_tot, aux_tot = psum_tree(
+                    (y.detach(), tree_map(torch.Tensor.detach, ss_aux)),
+                    self.comm)
+                y_tot.requires_grad_(True)
+                loss, _ = self._loss(y_tot, aux_tot, kwargs)
+                (ct,) = torch.autograd.grad(loss, y_tot)
+                grads = torch.autograd.grad(y, leaves, grad_outputs=ct)
+            grad = grads[0]
+            for g in grads[1:]:
+                grad = grad + g
+            return loss.detach(), psum(grad, self.comm)
+        return program
 
     # ------------------------------------------------------------------ #
     # Optimizer front-ends (parity: multigrad.py:226-352)

@@ -168,6 +168,35 @@ def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
     return traj
 
 
+def run_adam_streamed(loss_and_grad: Callable, params, nsteps: int = 100,
+                      param_bounds=None, learning_rate: float = 0.01,
+                      randkey=None, const_randkey: bool = False,
+                      progress: bool = True,
+                      checkpoint_dir: Optional[str] = None,
+                      checkpoint_every: Optional[int] = None,
+                      comm: Optional[MeshComm] = None):
+    """Adam over a *streamed* loss-and-grad callable (the fit loop of
+    :class:`~multigrad_tpu_torch.data.streaming.StreamingOnePointModel`;
+    parity: ``optim/adam.py:952`` of the JAX package).
+
+    Each step calls ``loss_and_grad(params[, randkey=...]) -> (loss,
+    grad)``, which for a streamed model runs the two-pass chunked chain
+    rule (or the scan path) on the host.  The same host loop as
+    :func:`run_adam`, so the same trajectory contract, bounds and
+    checkpointing: with ``checkpoint_dir`` the restart state is written
+    every ``checkpoint_every`` steps and a call with the same arguments
+    resumes from it.  The streamed catalog is not fingerprinted into the
+    checkpoint (the callable closes over its sources): keep it fixed
+    across a resume.  ``comm``: the processes that run the fit together
+    (its rank 0 writes the checkpoint).
+    """
+    return run_adam(loss_and_grad, params, nsteps=nsteps,
+                    param_bounds=param_bounds, learning_rate=learning_rate,
+                    randkey=randkey, const_randkey=const_randkey,
+                    progress=progress, checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every, data=None, comm=comm)
+
+
 #: Bytes of a leaf copied to the host at a time for its checksum.
 _DIGEST_CHUNK = 1 << 26
 

@@ -467,3 +467,62 @@ def test_joint_checkpointed_fit_equals_plain(dev, tmp_path):
     assert torch.equal(ckpted, plain)
     assert torch.equal(group.run_adam(checkpoint_dir=str(tmp_path),
                                       checkpoint_every=4, **kwargs), plain)
+
+
+# The streamed SMF path: 200,003 halos (a ragged tail) in chunks of 65,536.
+STREAM_HALOS, STREAM_CHUNK = 200_003, 65_536
+
+
+def test_prefetcher_on_card(dev):
+    from multigrad_tpu_torch.data import (ArraySource, ChunkPrefetcher,
+                                          plan_chunks)
+    from multigrad_tpu_torch.utils.profiling import StreamStats
+    rng = np.random.default_rng(3)
+    src = ArraySource(rng.normal(size=STREAM_HALOS).astype(np.float32))
+    plan = plan_chunks(STREAM_HALOS, STREAM_CHUNK)
+    stats = StreamStats()
+    pf = ChunkPrefetcher(lambda k: src._chunk_rows(plan.chunks[k]),
+                         plan.n_chunks, device=dev, stats=stats)
+    seen = []
+    for k, chunk in pf:
+        assert chunk.device.type == "cuda"
+        # The consumer's own stream reads it after the copy.
+        host = chunk.cpu().numpy()
+        np.testing.assert_array_equal(host, src.load_chunk(plan.chunks[k]))
+        seen.append(k)
+        # Pinned staging: (like, pinned tensors, views, device buffers).
+        assert all(slot is None or slot[1][0].is_pinned()
+                   for slot in pf._staging.slots)
+    assert seen == list(range(plan.n_chunks))
+    assert stats.max_live_buffers <= 2
+    assert stats.chunks == plan.n_chunks
+
+
+def test_streamed_matches_resident_on_card(dev):
+    from multigrad_tpu_torch.data import StreamingOnePointModel
+    resident = SMFModel(aux_data=make_smf_data(STREAM_HALOS, device=dev))
+    aux = make_smf_data(STREAM_HALOS, device=dev)
+    log_mh = aux.pop("log_halo_masses").cpu().numpy()
+    params = (-1.7, 0.35)
+    loss_r, grad_r = resident.calc_loss_and_grad_from_params(params)
+    results = {}
+    for prefetch in (True, False):
+        sm = StreamingOnePointModel(model=SMFModel(aux_data=aux),
+                                    streams={"log_halo_masses": log_mh},
+                                    chunk_rows=STREAM_CHUNK,
+                                    prefetch=prefetch)
+        results[prefetch] = sm.calc_loss_and_grad_from_params(params)
+        assert sm.last_stats.max_live_buffers <= 2
+        assert sm.last_stats.chunks == 2 * sm.plan().n_chunks
+    # The staging's buffers are made once and serve every pass.
+    first = sm._staging.slots[0][3][0].data_ptr()
+    sm.calc_loss_and_grad_from_params(params)
+    assert sm._staging.slots[0][3][0].data_ptr() == first
+    scan = sm.calc_loss_and_grad_scan(params)
+    for other in (results[False], scan):
+        assert all(torch.equal(a, b) for a, b in zip(results[True], other))
+    loss_s, grad_s = results[True]
+    np.testing.assert_allclose(float(loss_s), float(loss_r), rtol=1e-5)
+    np.testing.assert_allclose(grad_s.cpu().numpy(), grad_r.cpu().numpy(),
+                               rtol=1e-4,
+                               atol=1e-6 * float(grad_r.abs().max()))

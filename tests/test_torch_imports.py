@@ -22,6 +22,7 @@ def _python_files():
     yield os.path.join(REPO_ROOT, "chip_smoke.py")
     yield os.path.join(REPO_ROOT, "tools", "hist_card_vs_cpu.py")
     yield os.path.join(REPO_ROOT, "tools", "pair_kernels_ab.py")
+    yield os.path.join(REPO_ROOT, "tools", "streamed_smf.py")
 
 
 def _imported_roots(path):
@@ -51,6 +52,12 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.ingraph\n"
         "import multigrad_tpu_torch.utils.checkpoint\n"
         "import multigrad_tpu_torch.utils.debug\n"
+        "import multigrad_tpu_torch.data\n"
+        "import multigrad_tpu_torch.data.source\n"
+        "import multigrad_tpu_torch.data.prefetch\n"
+        "import multigrad_tpu_torch.data.streaming\n"
+        "import multigrad_tpu_torch.utils.profiling\n"
+        "import multigrad_tpu_torch.inference.fisher\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -74,7 +81,13 @@ def test_no_forbidden_import_in_sources():
             os.path.join("models", "joint.py"),
             "ingraph.py",
             os.path.join("utils", "checkpoint.py"),
-            os.path.join("utils", "debug.py")} <= names
+            os.path.join("utils", "debug.py"),
+            os.path.join("data", "__init__.py"),
+            os.path.join("data", "source.py"),
+            os.path.join("data", "prefetch.py"),
+            os.path.join("data", "streaming.py"),
+            os.path.join("utils", "profiling.py"),
+            os.path.join("inference", "fisher.py")} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -86,14 +99,16 @@ def test_no_forbidden_import_in_sources():
                                    "make_galhalo_hist_data", "make_wprp_data",
                                    "make_xi_data", "make_galaxy_mock",
                                    "make_joint_smf_wprp", "distribute_data",
-                                   "simple_grad_descent"])
+                                   "simple_grad_descent", "ChunkPrefetcher",
+                                   "StreamingOnePointModel"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
-    from multigrad_tpu_torch import ingraph
-    from multigrad_tpu_torch.models import (make_galaxy_mock,
+    from multigrad_tpu_torch import (ChunkPrefetcher, StreamingOnePointModel,
+                                     ingraph)
+    from multigrad_tpu_torch.models import (SMFModel, make_galaxy_mock,
                                             make_galhalo_data,
                                             make_galhalo_hist_data,
                                             make_joint_smf_wprp,
@@ -114,6 +129,12 @@ def test_default_device_is_cuda(entry):
                 np.arange(4.0)),
             "simple_grad_descent": lambda: ingraph.simple_grad_descent(
                 None, lambda dd, p: (p.sum(), p), guess=[0.0], nsteps=1),
+            "ChunkPrefetcher": lambda: ChunkPrefetcher(
+                lambda k: np.zeros(4), 2),
+            # A model that holds no tensor: its chunks go to the card.
+            "StreamingOnePointModel": lambda: StreamingOnePointModel(
+                model=SMFModel(aux_data={"volume": 1.0}),
+                streams={"log_halo_masses": np.zeros(4)}, chunk_rows=2),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

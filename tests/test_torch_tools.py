@@ -1,4 +1,5 @@
-"""``tools/hist_card_vs_cpu.py``'s references, on the CPU.
+"""``tools/hist_card_vs_cpu.py``'s references, on the CPU, and
+``tools/streamed_smf.py`` refusing to run without a card.
 
 ``chip_smoke.py``'s phase 9 and ``tests/test_torch_cuda.py`` hold the
 history model on the card against the CPU model fed the card's mean
@@ -6,7 +7,13 @@ log M*; here the feeding itself is checked, with a second CPU data set in
 the card's place: the fed model's forward is exactly the other data's,
 and fed its own it is exactly itself.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
+import pytest
+import torch
 
 from multigrad_tpu_torch.models import GalhaloHistModel, make_galhalo_hist_data
 from multigrad_tpu_torch.models import galhalo_hist as th
@@ -33,3 +40,16 @@ def test_fed_history_takes_the_given_forward():
         np.testing.assert_array_equal(a, b)
     assert gaps(same, own) == dict(y_rtol=0.0, loss_rel=0.0, grad_rtol=0.0)
     assert th._mean_log_mstar_block is block    # the model is restored
+
+
+def test_streamed_smf_needs_a_card():
+    # Its numbers are the card's: without one it exits non-zero and prints
+    # no result.
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "tools/streamed_smf.py"], cwd=root,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode != 0 and not out.stdout
+    assert "no CUDA device" in out.stderr
