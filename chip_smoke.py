@@ -93,12 +93,32 @@ order:
     1e-3), ``mode="rev"`` equal to ``"fwd"``, symmetric positive
     definite; at 1e8 halos resident against streamed in chunks of 2^22
     (rtol 1e-4), seconds for each, launches counted (one forward and 10
-    backwards a pass, per chunk when streamed).
+    backwards a pass, per chunk when streamed);
+18. the batched loss and gradient (``batched_loss_and_grad_fn``) of
+    ``SMFChi2Model`` at 1e8 halos, K = 8 rows: every row equal to its solo
+    ``calc_loss_and_grad_from_params`` bit for bit, 8 forwards and 8
+    backwards a call, ms a call against 8 solo calls, peak memory; the
+    Latin-hypercube scan of 64, batched equal to per sample, 64 forwards;
+19. ``run_multistart_adam`` as ``examples/smf_posterior.py`` runs it: 8
+    starts in ((-4, 0), (0.02, 1)) (seed 0), 200 steps at 0.05, batched
+    Adam steps/s, 8·201 launches of each kernel, the best start within
+    0.02 of TRUTH, the best and the worst rows against solo fits (rtol
+    1e-6, bit-identical or not logged), peak memory;
+20. HMC: the card against the CPU at 32,768 halos on the same numpy noise
+    (2 chains, 5 + 10 draws: every accept decision equal, samples rtol
+    1e-3); ``run_hmc`` at 1e8 from the ensemble's best, the inverse mass
+    the Laplace variances there (``fisher_information``), 4 chains, 8
+    leapfrog steps, 50 warmup and 150 samples at step size 0.5: draws/s,
+    C·(1 + 200·8) launches of each kernel, no divergence, mean acceptance
+    in [0.5, 0.99], R-hat < 1.1, each posterior sd within a factor of 2 of
+    the Laplace stderr; a profiler window of 3 leapfrog steps and the
+    device's busy share.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
-device time per launch in its path's profiler window), the ``nvidia-smi``
-line, and
+device time per launch in its path's profiler window;
+``launches_batched``, ``launches_ensemble`` and ``launches_hmc`` are its
+launches in phases 18, 19 and 20), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 It imports torch, numpy, the port and ``tools/hist_card_vs_cpu.py``
@@ -182,6 +202,20 @@ STREAM_SMALL_CHUNK = 131_072
 STREAM_STEPS, SCAN_STEPS, MEMMAP_STEPS = 5, 20, 3
 BOUND_BYTES = 1 << 28
 FISHER_HALOS = 32_768
+# The SMF posterior pipeline (examples/smf_posterior.py) on SMFChi2Model at
+# 1e8 halos: K = 8 rows of the batched loss and gradient drawn in LHS_BOX
+# and a Latin-hypercube scan of 64; 8 Adam starts in POSTERIOR_BOUNDS
+# (seed 0), 200 steps at 0.05; HMC from the best start, inv_mass the
+# Laplace variances there, 4 chains, 8 leapfrog steps, 50 warmup and 150
+# samples at step size 0.5.  Card against CPU at 32,768 halos: 2 chains,
+# 5 + 10 draws from numpy-seeded noise.
+LHS_BOX = ((-2.5, 0.1), (-1.5, 0.5))
+POSTERIOR_BOUNDS = ((-4.0, 0.0), (0.02, 1.0))
+BATCH_K, LHS_EVALS = 8, 64
+ENSEMBLE_STEPS, ENSEMBLE_LR = 200, 0.05
+HMC_CHAINS, HMC_LEAPFROG, HMC_WARMUP, HMC_SAMPLES = 4, 8, 50, 150
+HMC_STEP = 0.5
+HMC_SMALL = 32_768
 
 
 def log(msg):
@@ -197,9 +231,14 @@ def check(ok, what):
 #: window of tens of thousands of launches (a history step), each later
 #: window loses its first few device events, more the more were recorded
 #: before; the lead-in takes the loss, and ``device_times`` logs it.  A
-#: window that keeps none of them may have lost its own events too, and
-#: fails the run.
+#: window that keeps none of them may have lost its own events too: it
+#: runs again, up to ``WINDOW_ATTEMPTS`` times in all, and the run fails
+#: when none keeps one (a window of a full run on the H100 kept none,
+#: once, after the history profiles).  ``WINDOWS`` counts the windows and
+#: the runs again, and the summary prints both.
 LEAD_IN = 256
+WINDOW_ATTEMPTS = 3
+WINDOWS = {"windows": 0, "retries": 0}
 
 
 def device_events(fn):
@@ -208,29 +247,38 @@ def device_events(fn):
     window's ``LEAD_IN`` spin kernels are left out of both."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(LEAD_IN):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events, lead = [], 0
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "spin_kernel" in evt.name:
-            lead += 1
-            continue
-        events.append((evt.name, getattr(evt, "device_resource_id", None),
-                       evt.time_range.start, evt.time_range.end))
+    WINDOWS["windows"] += 1
+    for attempt in range(1, WINDOW_ATTEMPTS + 1):
+        WINDOWS["retries"] += attempt > 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events, lead = [], 0
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "spin_kernel" in evt.name:
+                lead += 1
+                continue
+            events.append((evt.name, getattr(evt, "device_resource_id",
+                                             None),
+                           evt.time_range.start, evt.time_range.end))
+        if lead:
+            break
+        log(f"profiler window, attempt {attempt}: all {LEAD_IN} lead-in "
+            "events dropped")
     if lead < LEAD_IN:
         log(f"profiler window: {LEAD_IN - lead} of the {LEAD_IN} lead-in "
             "events dropped")
     check(lead > 0, f"profiler window: all {LEAD_IN} lead-in events "
-          "dropped, so the window's own events may be lost too")
+          f"dropped in {WINDOW_ATTEMPTS} attempts, so the window's own "
+          "events may be lost too")
     return events, wall_us
 
 
@@ -618,6 +666,280 @@ def fisher_phase(reset_launches, read_launches, wrappers):
                launches_streamed=results["streamed"][2], n_chunks=c,
                stream_err=float((f_str - f_res).abs().max()))
     return out
+
+
+def wall_ms(fn, reps=5):
+    """Median wall ms of ``fn()`` over ``reps`` runs, each ended by
+    ``torch.cuda.synchronize()``."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def peak_above(fn):
+    """``fn()``'s result and the device memory it peaked at above what was
+    allocated before it (bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, torch.cuda.max_memory_allocated() - base
+
+
+def counted(reset_launches, read_launches, fn):
+    """``fn()``'s result, its wall seconds (to a synchronize) and the
+    kernel launches it made, the counts set to 0 just before it."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, read_launches()
+
+
+def batched_phase(reset_launches, read_launches, wrappers, model):
+    """Phase 18: the ``(K, ndim)`` batched loss and gradient of
+    ``SMFChi2Model`` at 1e8 halos against K solo calls, and the
+    Latin-hypercube scan against the per-sample loop of solo calls."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.utils.util import latin_hypercube_sampler
+    zeros = dict.fromkeys(wrappers, 0)
+    rows = torch.tensor(latin_hypercube_sampler(
+        *LHS_BOX, 2, BATCH_K, seed=0), dtype=torch.float32, device="cuda")
+    program = model.batched_loss_and_grad_fn()
+    leaves = model.aux_leaves()
+    program(rows, leaves)  # warm-up
+    ((losses, grads), peak), _, launches = counted(
+        reset_launches, read_launches,
+        lambda: peak_above(lambda: program(rows, leaves)))
+    check(launches == zeros | {"erf_counts_fwd": BATCH_K,
+                               "erf_counts_bwd": BATCH_K},
+          f"launches of a batched call of {BATCH_K} rows: {launches}")
+    check(bool(torch.isfinite(losses).all() and torch.isfinite(grads).all()),
+          "batched losses or gradients not finite")
+    solo = [model.calc_loss_and_grad_from_params(r) for r in rows]
+    check(all(torch.equal(losses[k], loss) and torch.equal(grads[k], grad)
+              for k, (loss, grad) in enumerate(solo)),
+          "a batched row differs from its solo call")
+    batched_ms = wall_ms(lambda: program(rows, leaves))
+    solo_ms = wall_ms(lambda: [model.calc_loss_and_grad_from_params(r)
+                               for r in rows])
+    log(f"batched loss and gradient, K = {BATCH_K} at {BIG_HALOS:,} halos: "
+        f"{batched_ms:.4f} ms a call ({solo_ms:.4f} ms for {BATCH_K} solo "
+        f"calls), every row equal to its solo call bit for bit; peak "
+        f"{peak / 1e9:.4f} GB above the model; launches {launches}")
+
+    lhs = dict(xmins=LHS_BOX[0], xmaxs=LHS_BOX[1], n_dim=2,
+               num_evaluations=LHS_EVALS, seed=0)
+
+    @torch.no_grad()
+    def per_sample():
+        # The JAX package's per-sample loop: each row's total sumstats
+        # (one all-reduce each) and the loss from them.
+        params = latin_hypercube_sampler(*LHS_BOX, 2, LHS_EVALS, seed=0)
+        ys = [model.calc_sumstats_from_params(x) for x in params]
+        losses = [model.calc_loss_from_sumstats(y) for y in ys]
+        return params, torch.stack(ys).cpu().numpy(), \
+            torch.stack(losses).cpu().numpy()
+
+    scans = {}
+    for name, fn in (("batched", lambda: model.run_lhs_param_scan(**lhs)),
+                     ("per sample", per_sample)):
+        (scan, peak_lhs), seconds, lhs_launches = counted(
+            reset_launches, read_launches, lambda: peak_above(fn))
+        check(lhs_launches == zeros | {"erf_counts_fwd": LHS_EVALS},
+              f"launches of the LHS scan ({name}): {lhs_launches}")
+        scans[name] = (scan, seconds, peak_lhs)
+    (b, b_s, b_peak), (s, s_s, _) = scans["batched"], scans["per sample"]
+    check(all(np.array_equal(x, y) for x, y in zip(b, s)),
+          "the LHS scan differs from the per-sample loop")
+    check(b[1].shape == (LHS_EVALS, 10) and bool(np.isfinite(b[1]).all()),
+          "LHS sumstats not finite or of the wrong shape")
+    log(f"LHS scan of {LHS_EVALS} at {BIG_HALOS:,} halos: {b_s:.4f} s "
+        f"(peak {b_peak / 1e6:.3f} MB above the model), the per-sample "
+        f"loop {s_s:.4f} s, equal bit for bit; {LHS_EVALS} forwards, no "
+        f"backward")
+    return dict(launches=launches, batched_ms=batched_ms, solo_ms=solo_ms,
+                peak=peak, lhs_s=b_s, lhs_single_s=s_s, lhs_peak=b_peak)
+
+
+def ensemble_phase(reset_launches, read_launches, wrappers, model):
+    """Phase 19: ``run_multistart_adam`` as ``examples/smf_posterior.py``
+    runs it, at 1e8 halos: 8 starts, 200 batched Adam steps."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.inference import run_multistart_adam
+    kw = dict(param_bounds=POSTERIOR_BOUNDS, n_starts=BATCH_K,
+              learning_rate=ENSEMBLE_LR, seed=0)
+    run_multistart_adam(model, nsteps=2, **kw)  # warm-up
+    (ens, peak), seconds, launches = counted(
+        reset_launches, read_launches, lambda: peak_above(
+            lambda: run_multistart_adam(model, nsteps=ENSEMBLE_STEPS, **kw)))
+    want = BATCH_K * (ENSEMBLE_STEPS + 1)  # each step, then the finals
+    check(launches == dict.fromkeys(wrappers, 0) | {
+        "erf_counts_fwd": want, "erf_counts_bwd": want},
+        f"launches of the ensemble: {launches}")
+    sps = ENSEMBLE_STEPS / seconds
+    best = ens.best_params.cpu().numpy()
+    log(f"ensemble: {BATCH_K} starts x {ENSEMBLE_STEPS} steps at "
+        f"{BIG_HALOS:,} halos in {seconds:.4f} s = {sps:.4f} batched Adam "
+        f"steps/s; best {best.tolist()} (loss {ens.best_loss:.6g}); losses "
+        f"{ens.losses.tolist()}; peak {peak / 1e9:.4f} GB above the model; "
+        f"launches {launches}")
+    check(bool(np.all(np.abs(best - np.array(TRUTH)) <= 0.02)),
+          f"the best start {best} is not within 0.02 of {TRUTH}")
+    losses = ens.losses.cpu().numpy()
+    picks = [int(np.argmin(np.where(np.isfinite(losses), losses, np.inf))),
+             int(np.argmax(np.where(np.isfinite(losses), losses, -np.inf)))]
+    identical, solo_s = [], None
+    for k in picks:
+        t0 = time.perf_counter()
+        solo = model.run_adam(guess=ens.inits[k], nsteps=ENSEMBLE_STEPS,
+                              param_bounds=POSTERIOR_BOUNDS,
+                              learning_rate=ENSEMBLE_LR, progress=False)[-1]
+        torch.cuda.synchronize()
+        solo_s = time.perf_counter() - t0
+        excess = float(((ens.params[k] - solo).abs()
+                        - 1e-6 * solo.abs()).max())
+        check(excess <= 0, f"ensemble row {k} differs from its solo fit "
+              f"beyond rtol 1e-6: {ens.params[k].tolist()} against "
+              f"{solo.tolist()}")
+        identical.append(bool(torch.equal(ens.params[k], solo)))
+    log(f"ensemble rows {picks} against solo fits (rtol 1e-6): bit-identical "
+        f"{identical}; a solo fit of {ENSEMBLE_STEPS} steps "
+        f"{ENSEMBLE_STEPS / solo_s:.4f} steps/s")
+    return dict(ens=ens, launches=launches, sps=sps, seconds=seconds,
+                peak=peak, identical=identical,
+                solo_sps=ENSEMBLE_STEPS / solo_s)
+
+
+def hmc_phase(reset_launches, read_launches, wrappers, model, ens):
+    """Phase 20: HMC, the card against the CPU on the same numpy noise at
+    32,768 halos, then ``run_hmc`` at 1e8 from the ensemble's best with
+    the Laplace variances as its inverse mass; a profiler window of 3
+    leapfrog steps."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.inference import (fisher_information,
+                                               hmc_init_from_ensemble,
+                                               run_hmc)
+    from multigrad_tpu_torch.inference.hmc import _sample, result_from
+    from multigrad_tpu_torch.models import (SMFChi2Model, aux_from_numpy,
+                                            make_smf_data)
+    arrays = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+              for k, v in make_smf_data(HMC_SMALL).items()}
+    card = SMFChi2Model(aux_data=aux_from_numpy(arrays, device="cuda"))
+    cpu = SMFChi2Model(aux_data=aux_from_numpy(arrays, device="cpu"))
+    stderr = fisher_information(cpu, TRUTH).stderr().numpy()
+    rng = np.random.default_rng(0)
+    init = (np.array(TRUTH) + stderr * rng.normal(size=(2, 2))).astype(
+        np.float32)
+    draws = 5 + 10
+    z = rng.normal(size=(draws, 2, 2)).astype(np.float32)
+    u = rng.uniform(size=(2, draws, 2)).astype(np.float32)
+
+    def small_run(m, device):
+        program = m.batched_loss_and_grad_fn()
+        leaves = m.aux_leaves()
+
+        def noise(t):
+            return (torch.tensor(z[t], device=device),
+                    torch.tensor(u[0, t], device=device),
+                    torch.tensor(u[1, t], device=device))
+        return result_from(_sample(
+            lambda q: program(q, leaves), torch.tensor(init, device=device),
+            noise, 5, 10, HMC_LEAPFROG,
+            torch.tensor(HMC_STEP, device=device),
+            torch.tensor(stderr ** 2, dtype=torch.float32, device=device),
+            0.8, 0.2))
+
+    on_card, on_cpu = small_run(card, "cuda"), small_run(cpu, "cpu")
+    moved = [np.any(np.diff(r.samples, axis=1) != 0, axis=-1)
+             for r in (on_card, on_cpu)]
+    check(np.array_equal(*moved), "HMC accept decisions differ between the "
+          f"card and the CPU: {moved}")
+    check(bool(moved[0].any()), "no HMC proposal accepted on the card")
+    small_err = float(np.max(np.abs(on_card.samples - on_cpu.samples)
+                             / np.abs(on_cpu.samples)))
+    check(small_err <= 1e-3, f"HMC samples on the card differ from the "
+          f"CPU's by {small_err} relative (> 1e-3)")
+    log(f"HMC at {HMC_SMALL:,} halos, card against CPU on the same noise: "
+        f"accept decisions equal ({int(moved[0].sum())} of {moved[0].size} "
+        f"moved), samples within {small_err:.3e} relative")
+    del card, cpu
+
+    fr = fisher_information(model, ens.best_params)
+    laplace = fr.stderr()
+    init = hmc_init_from_ensemble(ens, num_chains=HMC_CHAINS, spread=1.0,
+                                  stderr=laplace, randkey=1)
+    kw = dict(step_size=HMC_STEP, num_leapfrog=HMC_LEAPFROG,
+              inv_mass=laplace ** 2, randkey=2)
+    run_hmc(model, init, num_samples=1, num_warmup=1, **kw)  # warm-up
+    (res, peak), seconds, launches = counted(
+        reset_launches, read_launches, lambda: peak_above(
+            lambda: run_hmc(model, init, num_samples=HMC_SAMPLES,
+                            num_warmup=HMC_WARMUP, **kw)))
+    want = HMC_CHAINS * (1 + (HMC_WARMUP + HMC_SAMPLES) * HMC_LEAPFROG)
+    check(launches == dict.fromkeys(wrappers, 0) | {
+        "erf_counts_fwd": want, "erf_counts_bwd": want},
+        f"launches of the HMC run: {launches}")
+    dps = (HMC_WARMUP + HMC_SAMPLES) / seconds
+    sd = res.samples.reshape(-1, 2).std(axis=0)
+    ratio = sd / laplace.cpu().numpy()
+    accept = float(np.mean(res.accept_prob))
+    log(f"HMC at {BIG_HALOS:,} halos: {HMC_CHAINS} chains x "
+        f"{HMC_WARMUP} + {HMC_SAMPLES} draws of {HMC_LEAPFROG} leapfrog "
+        f"steps in {seconds:.4f} s = {dps:.4f} draws/s; {res.summary()}; "
+        f"mean {res.mean().tolist()}, sd {sd.tolist()} against Laplace "
+        f"{laplace.tolist()} (ratio {ratio.tolist()}); peak "
+        f"{peak / 1e9:.4f} GB above the model; launches {launches}")
+    check(int(np.sum(res.divergences)) == 0, "HMC divergences at 1e8")
+    check(0.5 <= accept <= 0.99, f"HMC mean acceptance {accept}")
+    check(bool(np.all(res.rhat < 1.1)), f"HMC R-hat {res.rhat}")
+    check(bool(np.all((ratio > 0.5) & (ratio < 2.0))),
+          f"posterior sd {sd} not within a factor of 2 of Laplace")
+
+    # A window of 3 leapfrog steps (and the start's evaluation).
+    program = model.batched_loss_and_grad_fn()
+    leaves = model.aux_leaves()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def noise(_t):
+        return (torch.randn((HMC_CHAINS, 2), generator=gen, device="cuda"),
+                torch.rand(HMC_CHAINS, generator=gen, device="cuda"),
+                torch.rand(HMC_CHAINS, generator=gen, device="cuda"))
+
+    def three_steps():
+        _sample(lambda q: program(q, leaves), init, noise, 0, 1, 3,
+                torch.tensor(HMC_STEP, device="cuda"),
+                (laplace ** 2).float(), 0.8, 0.2)
+
+    three_steps()
+    by_name, wall_us = device_times(three_steps)
+    busy_us = sum(us for us, _ in by_name.values())
+    busy = busy_us / wall_us if wall_us else float("nan")
+    erf = {stem: sum(c for name, (_, c) in by_name.items() if stem in name)
+           for stem in ("erf_fwd_kernel", "erf_bwd_kernel")}
+    log(f"HMC profile, 3 leapfrog steps and the start ({4 * HMC_CHAINS} "
+        f"rows): wall {wall_us / 1e3:.4f} ms, device busy "
+        f"{busy_us / 1e3:.4f} ms ({100 * busy:.1f}%); erf kernels {erf}")
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:100]}")
+    return dict(launches=launches, dps=dps, seconds=seconds, peak=peak,
+                accept=accept, rhat=res.rhat.tolist(), sd=sd.tolist(),
+                laplace=laplace.tolist(), busy=busy, small_err=small_err,
+                profile_wall_ms=wall_us / 1e3, profile_busy_ms=busy_us / 1e3)
 
 
 def main():
@@ -1693,6 +2015,23 @@ def main():
     fisher = fisher_phase(reset_launches, read_launches, wrappers)
     torch.cuda.empty_cache()
 
+    # 18-20. the SMF posterior pipeline at 1e8 halos -------------------
+    from multigrad_tpu_torch.models import SMFChi2Model
+    posterior_model = SMFChi2Model(aux_data=make_smf_data(BIG_HALOS))
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 18")
+    batched = batched_phase(reset_launches, read_launches, wrappers,
+                            posterior_model)
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 19")
+    ensemble = ensemble_phase(reset_launches, read_launches, wrappers,
+                              posterior_model)
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 20")
+    hmc = hmc_phase(reset_launches, read_launches, wrappers,
+                    posterior_model, ensemble["ens"])
+    del posterior_model
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
@@ -1849,6 +2188,12 @@ def main():
             "bwd", pair_bwd_bound, pair_1e5["bwd_device_ms"])
         | {"device_ms_cross": cross_sweep_ms},
     ]
+    for k in kernels:
+        # The posterior pipeline's launches of each kernel: one batched
+        # call of K rows, the ensemble, the HMC run.
+        k.update(launches_batched=batched["launches"][k["name"]],
+                 launches_ensemble=ensemble["launches"][k["name"]],
+                 launches_hmc=hmc["launches"][k["name"]])
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
@@ -1861,6 +2206,15 @@ def main():
         f"{stream['sweep'][STREAM_CHUNK]['peak'] / 1e6:.3f} MB at "
         f"{STREAM_CHUNK:,}; Fisher {fisher['resident_s']:.4f} s resident, "
         f"{fisher['streamed_s']:.4f} s streamed")
+    log(f"SMF posterior at 1e8: batched K = {BATCH_K} "
+        f"{batched['batched_ms']:.4f} ms a call (solo x{BATCH_K} "
+        f"{batched['solo_ms']:.4f} ms, peak {batched['peak'] / 1e9:.4f} GB); "
+        f"ensemble {ensemble['sps']:.4f} batched Adam steps/s (peak "
+        f"{ensemble['peak'] / 1e9:.4f} GB); HMC {hmc['dps']:.4f} draws/s "
+        f"(peak {hmc['peak'] / 1e9:.4f} GB, busy {100 * hmc['busy']:.1f}% "
+        "over 3 leapfrog steps)")
+    log(f"profiler windows: {WINDOWS['windows']}, run again "
+        f"{WINDOWS['retries']} times for a lost lead-in")
     log(f"done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,7 +14,8 @@ joint SMF + wp(rp) fit), and Adam checkpoints and resumes
 through a fit in chunks (``StreamingOnePointModel``, exact two-pass
 loss and gradient, a double-buffered prefetcher over pinned memory and
 a copy stream); ``inference`` gives Fisher matrices, resident or
-streamed.  The hot op, the erf-CDF binned counts of the SMF
+streamed, multi-start Adam ensembles and multi-chain HMC, both through a
+model's ``(K, ndim)`` batched loss and gradient.  The hot op, the erf-CDF binned counts of the SMF
 and galaxy–halo models, runs as hand-written CUDA kernels on CUDA tensors and as their
 plain PyTorch versions on CPU tensors: the dense counts with a scalar or
 a per-particle sigma (``csrc/erf_counts.cu``) and the fused windowed
@@ -35,23 +36,32 @@ from .optim.transforms import (apply_inverse_transforms,  # noqa: F401
                                transform)
 from .utils import util  # noqa: F401
 from .utils.util import (GradDescentResult,  # noqa: F401
-                         latin_hypercube_sampler, simple_grad_descent)
+                         latin_hypercube_sampler, simple_grad_descent,
+                         simple_grad_descent_scan)
 from . import data  # noqa: F401
 from .data import (ArraySource, CatalogSource,  # noqa: F401
                    ChunkPrefetcher, MemmapSource, NpzSource,
                    StreamingOnePointModel)
 from . import inference  # noqa: F401
-from .inference import FisherResult, fisher_information  # noqa: F401
+from .inference import (EnsembleResult, FisherResult,  # noqa: F401
+                        HMCResult, ensemble_memory_model,
+                        fisher_information, hmc_init_from_ensemble,
+                        laplace_covariance, max_k_for_budget, run_hmc,
+                        run_multistart_adam, sumstats_jacobian)
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
     "MeshComm", "global_comm", "split_subcomms", "split_subcomms_by_node",
     "all_gather", "scatter_nd", "scatter_from_local",
-    "run_adam", "run_bfgs", "simple_grad_descent", "GradDescentResult",
+    "run_adam", "run_bfgs", "simple_grad_descent",
+    "simple_grad_descent_scan", "GradDescentResult",
     "latin_hypercube_sampler",
     "transform", "inverse_transform", "apply_transforms",
     "apply_inverse_transforms", "init_randkey", "gen_new_key",
     "data", "StreamingOnePointModel", "CatalogSource", "ArraySource",
     "NpzSource", "MemmapSource", "ChunkPrefetcher",
     "inference", "FisherResult", "fisher_information",
+    "laplace_covariance", "sumstats_jacobian", "HMCResult", "run_hmc",
+    "EnsembleResult", "run_multistart_adam", "hmc_init_from_ensemble",
+    "ensemble_memory_model", "max_k_for_budget",
 ]

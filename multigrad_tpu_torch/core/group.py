@@ -46,7 +46,8 @@ from typing import Any, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .model import OnePointModel, _first_tensor, joint_loss_and_grad
+from .model import (OnePointModel, _first_tensor, _require_replicated_k,
+                    joint_loss_and_grad)
 from ..optim import adam as _adam
 from ..optim import bfgs as _bfgs
 from ..parallel.collectives import reduce_sum
@@ -168,16 +169,29 @@ class OnePointGroup:
         return torch.as_tensor(np.asarray(params, np.float32),
                                device=self._device)
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the group's data on this process."""
+        return self._device
+
     # ------------------------------------------------------------------ #
-    def _fused_loss_and_grad(self, params, randkey):
-        """One evaluation of the fused path: ``(loss, grad)``."""
-        losses, grad = joint_loss_and_grad(
-            self.models, self.comm, params,
-            OnePointModel._key_kwargs(randkey))
+    @staticmethod
+    def _sum_losses(losses):
         loss = losses[0][0]
         for loss_m, _ in losses[1:]:
             loss = loss + loss_m
-        return loss, grad
+        return loss
+
+    def _fused_loss_and_grad(self, params, randkey, models=None):
+        """One evaluation of the fused path: ``(loss, grad)``; a
+        ``(K, ndim)`` batch gives ``(losses (K,), grads (K, ndim))``."""
+        losses, grad = joint_loss_and_grad(
+            self.models if models is None else models, self.comm, params,
+            OnePointModel._key_kwargs(randkey))
+        if params.dim() == 2:
+            return torch.stack([self._sum_losses(row) for row in losses]), \
+                grad
+        return self._sum_losses(losses), grad
 
     def _host_loss_and_grad(self, params, randkey):
         """One evaluation of the host path: each member on its own comm,
@@ -204,6 +218,67 @@ class OnePointGroup:
         if self.fused:
             return self._fused_loss_and_grad(params, randkey)
         return self._host_loss_and_grad(params, randkey)
+
+    # ------------------------------------------------------------------ #
+    # The inference surface of a fused group (parity: core/group.py:243,
+    # 271, 334, 341 of the JAX package): the joint parameter vector, and
+    # one tuple of each member's leaves as the data argument
+    # ------------------------------------------------------------------ #
+    # The group sums plain scalar losses (a fused group has no member with
+    # loss_func_has_aux), as a model without aux does.
+    loss_func_has_aux = False
+    sumstats_func_has_aux = False
+
+    def _require_fused(self):
+        if not self.fused:
+            raise ValueError(
+                "this OnePointGroup is not fused (members on disjoint "
+                "comms, or a member with loss_func_has_aux); "
+                "loss_and_grad_fn, batched_loss_and_grad_fn, the "
+                "ensemble and HMC need the fused path — see "
+                "OnePointGroup.fused")
+
+    def aux_leaves(self) -> tuple:
+        """Each member's :meth:`OnePointModel.aux_leaves`, in member
+        order: the data argument of the group's programs."""
+        return tuple(m.aux_leaves() for m in self.models)
+
+    def _rebound(self, aux_leaves):
+        return tuple(m._with_leaves(leaves)
+                     for m, leaves in zip(self.models, aux_leaves))
+
+    def loss_and_grad_fn(self, with_key: bool = False):
+        """``program(params, aux_leaves, key=None) -> (loss, grad)`` over
+        the joint parameters, each member's data from ``aux_leaves``
+        (:meth:`aux_leaves`); the fused path only."""
+        self._require_fused()
+
+        def program(params, aux_leaves, key=None):
+            return self._fused_loss_and_grad(
+                self._params(params), key if with_key else None,
+                self._rebound(aux_leaves))
+        return program
+
+    def batched_loss_and_grad_fn(self, with_key: bool = False,
+                                 k_sharded: bool = False):
+        """``program(params (K, ndim), aux_leaves, key=None) -> (losses
+        (K,), grads (K, ndim))``: K joint evaluations through every
+        member's chain rule in one call, 2 all-reduces whatever the
+        number of members and rows (see
+        :meth:`OnePointModel.batched_loss_and_grad_fn`); the fused path
+        only."""
+        self._require_fused()
+        _require_replicated_k(k_sharded)
+
+        def program(params, aux_leaves, key=None):
+            params = self._params(params)
+            if params.dim() != 2:
+                raise ValueError("batched params must be (K, ndim), got "
+                                 f"shape {tuple(params.shape)}")
+            return self._fused_loss_and_grad(
+                params, key if with_key else None,
+                self._rebound(aux_leaves))
+        return program
 
     # ------------------------------------------------------------------ #
     # Optimizer proxies (parity: multigrad.py:583-599)

@@ -38,6 +38,7 @@ from ..optim import bfgs as _bfgs
 from ..parallel.collectives import psum
 from ..parallel.mesh import MeshComm
 from ..utils import util as _util
+from ..utils.util import tree_leaves, tree_map
 
 
 def _first_tensor(tree):
@@ -69,26 +70,16 @@ def psum_joined(tensors, comm):
         tensors, flat.split([t.numel() for t in tensors]))]
 
 
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of trees of one structure (dicts, lists,
-    tuples and named tuples of leaves; ``None`` is an empty subtree)."""
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        out = [tree_map(fn, *items) for items in zip(*trees)]
-        return type(first)(*out) if hasattr(first, "_fields") \
-            else type(first)(out)
-    return fn(*trees)
+#: What ``k_sharded=True`` raises: the port has no replica axis yet.
+K_SHARDED_NOT_PORTED = (
+    "k_sharded=True (the K axis partitioned over a replica axis of "
+    "ensemble_comm) is not ported yet: ROADMAP.md Queue 1 item 6, "
+    "sharded K; pass k_sharded=False")
 
 
-def tree_leaves(tree) -> list:
-    """The leaves of ``tree`` in :func:`tree_map`'s order."""
-    leaves = []
-    tree_map(leaves.append, tree)
-    return leaves
+def _require_replicated_k(k_sharded):
+    if k_sharded:
+        raise NotImplementedError(K_SHARDED_NOT_PORTED)
 
 
 def psum_tree(tree, comm):
@@ -155,41 +146,56 @@ def resolve_remat_policy(policy):
 
 def joint_loss_and_grad(models, comm, params, kwargs):
     """The two-stage chain rule over ``models`` that share ``comm`` or have
-    ``comm=None``, all reading ``params``.
+    ``comm=None``, all reading ``params``: one ``(ndim,)`` vector, or a
+    ``(K, ndim)`` batch of K independent rows.
 
-    Every model's partial sumstats ``y_r``; ONE ``psum`` of the comm-ful
-    models' ``y_r``, flattened and joined (a ``comm=None`` model's are
-    whole already); each model's ``dL/dy`` on a leaf; one VJP into
-    ``params`` for the comm-ful models, whose gradient gets ONE ``psum``,
-    and one for the rest.  So 2 all-reduces an evaluation whatever the
-    number of models.  Returns each model's ``(loss, loss_aux)`` and the
-    gradient summed over the models.
+    Each row gets a leaf copy of its own, and every model its partial
+    sumstats ``y_r`` from it; ONE ``psum`` of the comm-ful models' ``y_r``
+    of every row, flattened and joined (a ``comm=None`` model's are whole
+    already); each model's ``dL/dy`` of each row on a leaf; one VJP into
+    every row's leaf for the comm-ful models, whose ``(K, ndim)`` gradient
+    gets ONE ``psum``, and one for the rest.  So 2 all-reduces an
+    evaluation whatever the number of models and rows, and row k runs
+    the ops of a solo evaluation at ``params[k]``.  Returns, a row, each
+    model's ``(loss, loss_aux)`` (one list for an ``(ndim,)`` vector, a
+    list of K for a batch) and the gradient summed over the models, of
+    ``params``' shape.
     """
-    p = params.detach().requires_grad_(True)
+    batched = params.dim() == 2
+    leaves = [row.detach().requires_grad_(True)
+              for row in (params.unbind(0) if batched else (params,))]
+    shared = [i for i, m in enumerate(models) if m.comm is not None]
+    local = [i for i, m in enumerate(models) if m.comm is None]
     with torch.enable_grad():
-        outs = [m._sumstats(p, kwargs) for m in models]
-        shared = [i for i, m in enumerate(models) if m.comm is not None]
-        local = [i for i, m in enumerate(models) if m.comm is None]
-        totals = [y.detach() for y, _ in outs]
-        for i, total in zip(shared, psum_joined([totals[i] for i in shared],
-                                                comm)):
-            totals[i] = total
+        outs = [[m._sumstats(p, kwargs) for m in models] for p in leaves]
+        totals = [[y.detach() for y, _ in row] for row in outs]
+        summed = iter(psum_joined(
+            [row[i] for row in totals for i in shared], comm))
+        for row in totals:
+            for i in shared:
+                row[i] = next(summed)
         losses, cotangents = [], []
-        for m, (_, ss_aux), y in zip(models, outs, totals):
-            y = y.requires_grad_(True)
-            loss, laux = m._loss(y, ss_aux, kwargs)
-            (dloss_dy,) = torch.autograd.grad(loss, y)
-            losses.append((loss.detach(), laux))
-            cotangents.append(dloss_dy)
+        for row_outs, row_totals in zip(outs, totals):
+            row_losses, row_cts = [], []
+            for m, (_, ss_aux), y in zip(models, row_outs, row_totals):
+                y = y.requires_grad_(True)
+                loss, laux = m._loss(y, ss_aux, kwargs)
+                (dloss_dy,) = torch.autograd.grad(loss, y)
+                row_losses.append((loss.detach(), laux))
+                row_cts.append(dloss_dy)
+            losses.append(row_losses)
+            cotangents.append(row_cts)
         grad = None
         for members, comm_m in ((shared, comm), (local, None)):
             if members:
-                (g,) = torch.autograd.grad(
-                    [outs[i][0] for i in members], p,
-                    grad_outputs=[cotangents[i] for i in members])
-                g = psum(g, comm_m)
+                grads = torch.autograd.grad(
+                    [row[i][0] for row in outs for i in members], leaves,
+                    grad_outputs=[row[i] for row in cotangents
+                                  for i in members])
+                g = psum(torch.stack(grads) if batched else grads[0],
+                         comm_m)
                 grad = g if grad is None else grad + g
-    return losses, grad
+    return (losses if batched else losses[0]), grad
 
 
 @dataclass
@@ -358,6 +364,99 @@ class OnePointModel:
                                         self._key_kwargs(randkey))
         y, jac = psum_joined((y, jac), self.comm)
         return y, jac
+
+    # ------------------------------------------------------------------ #
+    # Programs over rebindable data (parity: core/model.py:1010-1044 of
+    # the JAX package): the surface the ensemble and HMC run on
+    # ------------------------------------------------------------------ #
+    def aux_leaves(self) -> list:
+        """The tensors of ``aux_data`` in tree order: the data argument
+        of :meth:`loss_and_grad_fn` and :meth:`batched_loss_and_grad_fn`
+        (the other leaves stay bound to the model)."""
+        return [leaf for leaf in tree_leaves(self.aux_data)
+                if isinstance(leaf, torch.Tensor)]
+
+    def _with_leaves(self, leaves):
+        """This model with ``leaves`` bound in place of its aux tensors,
+        as :meth:`_with_chunk` binds a chunk; itself when they are its
+        own."""
+        leaves = list(leaves)
+        own = self.aux_leaves()
+        if len(leaves) != len(own):
+            raise ValueError(f"expected {len(own)} aux leaves (see "
+                             f"aux_leaves), got {len(leaves)}")
+        if all(a is b for a, b in zip(leaves, own)):
+            return self
+        swap = iter(leaves)
+        return dataclasses.replace(self, aux_data=tree_map(
+            lambda leaf: next(swap) if isinstance(leaf, torch.Tensor)
+            else leaf, self.aux_data))
+
+    def loss_and_grad_fn(self, with_key: bool = False):
+        """``program(params, aux_leaves, key=None) -> (loss, grad)``: one
+        evaluation of the two-stage chain rule over the data ``aux_leaves``
+        (from :meth:`aux_leaves`, or other tensors of the same tree), so
+        a caller swaps data without building another model; ``key`` is
+        the ``randkey`` seed with ``with_key``.  ``(loss, aux)`` with
+        ``loss_func_has_aux``."""
+        def program(params, aux_leaves, key=None):
+            model = self._with_leaves(aux_leaves)
+            kwargs = self._key_kwargs(key) if with_key else {}
+            (loss, laux), grad = model._loss_and_grad(model._params(params),
+                                                      kwargs)
+            return ((loss, laux) if self.loss_func_has_aux else loss), grad
+        return program
+
+    def batched_loss_and_grad_fn(self, with_key: bool = False,
+                                 k_sharded: bool = False):
+        """``program(params (K, ndim), aux_leaves, key=None) -> (losses
+        (K,), grads (K, ndim))``: K independent evaluations in one call,
+        the JAX package's vmapped ``"batched_loss_and_grad"``.  A host
+        loop over the rows inside :func:`joint_loss_and_grad`: each row's
+        forward from its own leaf, every row's ``y_r`` in ONE all-reduce,
+        one backward pass over all the rows, ONE all-reduce of the
+        ``(K, ndim)`` gradient; 2 all-reduces whatever K, and row k equal
+        to a solo :meth:`calc_loss_and_grad_from_params` at ``params[k]``
+        bit for bit.  Loss aux values are dropped.  ``k_sharded=True``
+        (the K axis over a replica axis) is not ported yet."""
+        _require_replicated_k(k_sharded)
+
+        def program(params, aux_leaves, key=None):
+            model = self._with_leaves(aux_leaves)
+            kwargs = self._key_kwargs(key) if with_key else {}
+            params = model._params(params)
+            if params.dim() != 2:
+                raise ValueError("batched params must be (K, ndim), got "
+                                 f"shape {tuple(params.shape)}")
+            rows, grads = joint_loss_and_grad((model,), model.comm, params,
+                                              kwargs)
+            return torch.stack([loss for ((loss, _),) in rows]), grads
+        return program
+
+    @torch.no_grad()
+    def run_lhs_param_scan(self, xmins, xmaxs, n_dim, num_evaluations,
+                           seed=None, randkey=None, batched=True):
+        """Sumstats and loss over a Latin-hypercube sample (parity:
+        ``core/model.py:1204-1245`` of the JAX package); numpy arrays
+        ``(params, sumstats, losses)``, ``params`` the sampler's float64
+        draw.
+
+        One no-grad pass over the rows, one row at a time (only one row's
+        values live), ONE all-reduce of the ``(K, |y|)`` partial sumstats,
+        then each row's loss (with the sumstats' aux where they carry
+        one); loss aux values are dropped.  ``batched`` is accepted for
+        the JAX package's signature: its per-sample loop (``batched=
+        False``) gives the same values, so both run this one body.
+        """
+        del batched
+        params = _util.latin_hypercube_sampler(
+            xmins, xmaxs, n_dim, num_evaluations, seed=seed)
+        kwargs = self._key_kwargs(randkey)
+        rows = [self._sumstats(self._params(x), kwargs) for x in params]
+        ys = psum(torch.stack([y for y, _ in rows]), self.comm)
+        losses = [self._loss(y, ss_aux, kwargs)[0]
+                  for y, (_, ss_aux) in zip(ys, rows)]
+        return params, ys.cpu().numpy(), torch.stack(losses).cpu().numpy()
 
     # ------------------------------------------------------------------ #
     # Aux re-binding and the chunk programs of the streamed paths

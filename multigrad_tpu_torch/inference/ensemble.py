@@ -1,0 +1,311 @@
+"""Multi-start Adam ensembles (port of :mod:`multigrad_tpu.inference
+.ensemble`).
+
+One-point losses are rarely convex, so a single fit finds *a* basin,
+not necessarily *the* basin.  :func:`run_multistart_adam` runs K
+independent Adam fits as one: Adam's update is elementwise, so a
+``(K, ndim)`` parameter matrix driven by the model's batched loss and
+gradient (:meth:`~multigrad_tpu_torch.core.model.OnePointModel
+.batched_loss_and_grad_fn`: K rows, 2 all-reduces a step) is K exact
+independent fits.  :func:`hmc_init_from_ensemble` turns the winning
+basin into chain starts for :func:`~multigrad_tpu_torch.inference
+.run_hmc`.
+
+Not ported yet: ``run_multistart_lbfgs`` (``optim/bfgs.py::
+run_lbfgs_scan``, optax's L-BFGS with its zoom line search, has no port),
+sharded K (no replica axis: ``k_sharded="auto"`` resolves to ``False``
+and ``True`` raises) and the monitoring arguments.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.model import K_SHARDED_NOT_PORTED
+from ..optim import adam as _adam
+from ..optim.transforms import bounds_to_arrays
+from ..utils.util import latin_hypercube_sampler, resolve_device
+
+__all__ = ["EnsembleResult", "batched_fit_wrapper",
+           "run_multistart_adam", "hmc_init_from_ensemble",
+           "ensemble_memory_model", "max_k_for_budget",
+           "resolve_k_sharded", "resolve_k_shard_topology",
+           "k_shards_bucket", "pad_k_to_replicas"]
+
+#: Per-member resident rows of the batched Adam fit beyond the
+#: trajectory: params, Adam's two moment sets and the update transient,
+#: each ``ndim`` floats a member.
+ENSEMBLE_STATE_ROWS = 4
+
+#: Bytes of a float32 item: the port's parameters and moments.
+ITEMSIZE = 4
+
+#: The monitoring arguments, which belong to telemetry (not ported yet).
+MONITORING_NOT_PORTED = (
+    "{} is not ported yet (telemetry: ROADMAP.md Queue 1 item 7)")
+
+
+def _refuse_monitoring(**given):
+    for name, value in given.items():
+        if value not in (None, 0):
+            raise NotImplementedError(MONITORING_NOT_PORTED.format(name))
+
+
+def ensemble_memory_model(k: int, ndim: int, nsteps: int, *,
+                          n_replicas: int = 1, catalog_bytes: int = 0,
+                          n_devices: Optional[int] = None,
+                          itemsize: Optional[int] = None) -> int:
+    """Per-device bytes of a ``(K, ndim)`` batched Adam fit: the ``(nsteps
+    + 1, K, ndim)`` trajectory plus :data:`ENSEMBLE_STATE_ROWS` state rows
+    a member, divided by ``n_replicas`` when K is sharded, plus the
+    catalog's share, ``catalog_bytes · n_replicas / n_devices``."""
+    itemsize = ITEMSIZE if itemsize is None else int(itemsize)
+    r = max(int(n_replicas), 1)
+    k_local = math.ceil(max(int(k), 0) / r)
+    state = k_local * int(ndim) * itemsize \
+        * (int(nsteps) + 1 + ENSEMBLE_STATE_ROWS)
+    data = 0
+    if catalog_bytes and n_devices:
+        data = int(catalog_bytes) * r // max(int(n_devices), 1)
+    return int(state + data)
+
+
+def max_k_for_budget(budget_bytes: int, ndim: int, nsteps: int, *,
+                     n_replicas: int = 1, catalog_bytes: int = 0,
+                     n_devices: Optional[int] = None,
+                     itemsize: Optional[int] = None) -> int:
+    """The largest K whose :func:`ensemble_memory_model` estimate fits
+    ``budget_bytes`` a device (0 when the catalog's share alone does
+    not)."""
+    itemsize = ITEMSIZE if itemsize is None else int(itemsize)
+    r = max(int(n_replicas), 1)
+    data = 0
+    if catalog_bytes and n_devices:
+        data = int(catalog_bytes) * r // max(int(n_devices), 1)
+    per_member = int(ndim) * itemsize \
+        * (int(nsteps) + 1 + ENSEMBLE_STATE_ROWS)
+    if budget_bytes <= data or per_member <= 0:
+        return 0
+    return ((int(budget_bytes) - data) // per_member) * r
+
+
+def resolve_k_shard_topology(model, k_sharded="auto"):
+    """``(sharded, n_replicas)`` for a ``k_sharded`` knob (``"auto"`` or a
+    bool).  The port has no replica axis yet: ``"auto"`` and ``False``
+    give ``(False, 1)``, and ``True`` raises."""
+    if k_sharded is True:
+        raise NotImplementedError(K_SHARDED_NOT_PORTED)
+    if k_sharded is False or k_sharded == "auto":
+        return False, 1
+    raise ValueError(
+        f"k_sharded must be True, False or 'auto', got {k_sharded!r}")
+
+
+def k_shards_bucket(bucket: int, k_sharded: bool, n_replicas: int) -> bool:
+    """Whether a ``(K, ndim)`` batch runs the K-partitioned program:
+    sharding on and the replica count dividing K."""
+    r = max(int(n_replicas), 1)
+    return bool(k_sharded) and int(bucket) % r == 0
+
+
+def resolve_k_sharded(model, k: int, ndim: int, nsteps: int,
+                      k_sharded="auto") -> bool:
+    """Resolve ``k_sharded`` for a K-member fit.  The JAX package shards
+    under ``"auto"`` when the model has a replica axis and the replicated
+    layout's estimate exceeds a memory budget; the port has no replica
+    axis, so ``"auto"`` and ``False`` give ``False`` and ``True`` raises
+    (``k``, ``ndim`` and ``nsteps`` keep the JAX package's signature)."""
+    return resolve_k_shard_topology(model, k_sharded)[0]
+
+
+def pad_k_to_replicas(inits, n_replicas: int):
+    """``(padded, K)``: a ``(K, ndim)`` batch padded up to a multiple of
+    the replica count with copies of row 0 (inert independent fits)."""
+    k = int(inits.shape[0])
+    pad = (-k) % max(int(n_replicas), 1)
+    if pad:
+        inits = torch.cat([inits, inits[:1].expand(pad, *inits.shape[1:])])
+    return inits, k
+
+
+def batched_fit_wrapper(model, with_key: bool, k_sharded: bool = False):
+    """``wrapper(params_batch, key, aux_leaves) -> (losses, grads)`` over
+    the model's :meth:`batched_loss_and_grad_fn`, in the argument order
+    of the JAX package's Adam scan.  Cached on the model, so ensembles
+    and the serving layer's bucket dispatches share one wrapper."""
+    cache = model.__dict__.setdefault("_program_cache", {})
+    key = ("multistart_adam_wrapper", bool(with_key), bool(k_sharded))
+    if key not in cache:
+        program = model.batched_loss_and_grad_fn(with_key,
+                                                 k_sharded=k_sharded)
+
+        def wrapper(p, key, aux_leaves):
+            return program(p, aux_leaves, key)
+        cache[key] = wrapper
+    return cache[key]
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def float32_on(x, device) -> torch.Tensor:
+    """``x`` (a tensor, or anything numpy takes) as float32 on
+    ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x, np.float32))
+    return x.detach().to(device, torch.float32)
+
+
+@dataclass(frozen=True)
+class EnsembleResult:
+    """Outcome of a multi-start fit.
+
+    Attributes
+    ----------
+    best_params : tensor, shape (ndim,)
+        Parameters of the lowest-loss basin.
+    best_loss : float
+        Its loss.
+    params : tensor, shape (n_starts, ndim)
+        Final parameters of every start.
+    losses : tensor, shape (n_starts,)
+        Final losses of every start (``argmin`` over the finite ones picks
+        ``best_params``).
+    inits : tensor, shape (n_starts, ndim)
+        The starts.
+    k_sharded : bool
+        Whether the fit ran with K sharded (always ``False`` in the port).
+    """
+
+    best_params: torch.Tensor
+    best_loss: float
+    params: torch.Tensor
+    losses: torch.Tensor
+    inits: torch.Tensor
+    k_sharded: bool = False
+
+    @property
+    def n_starts(self) -> int:
+        return self.params.shape[0]
+
+    def basin_spread(self) -> float:
+        """The largest distance of a final point from the winner: ~0 when
+        every start found the same basin."""
+        d = np.linalg.norm(_numpy(self.params) - _numpy(self.best_params),
+                           axis=1)
+        return float(np.max(d))
+
+
+def _sample_inits(param_bounds, n_starts, ndim, seed):
+    """Latin-hypercube starts strictly inside the bounds box (pulled 5% in
+    from each face: the bounds bijection needs interior points), float64
+    numpy."""
+    low, high = (b.numpy().astype(np.float64)
+                 for b in bounds_to_arrays(param_bounds, ndim, "cpu"))
+    if not (np.all(np.isfinite(low)) and np.all(np.isfinite(high))):
+        raise ValueError(
+            "multi-start sampling needs finite (low, high) bounds for "
+            "every parameter; pass explicit `inits` for unbounded fits")
+    pad = 0.05 * (high - low)
+    return latin_hypercube_sampler(low + pad, high - pad, ndim, n_starts,
+                                   seed=seed)
+
+
+def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
+                        nsteps: int = 200, learning_rate: float = 0.01,
+                        inits=None, seed: int = 0, randkey=None,
+                        const_randkey: bool = False, bound_fits: bool = True,
+                        telemetry=None, log_every: int = 0, live=None,
+                        alerts=None, k_sharded="auto") -> EnsembleResult:
+    """K independent Adam fits as one batched fit (parity:
+    ``inference/ensemble.py:296-434`` of the JAX package).
+
+    One :func:`~multigrad_tpu_torch.optim.adam.run_adam` call on the
+    ``(K, ndim)`` starts through :func:`batched_fit_wrapper` (each step
+    one batched loss and gradient), then one batched evaluation of the
+    finals; the best start is the ``argmin`` over finite losses.
+
+    Parameters
+    ----------
+    model : OnePointModel or fused OnePointGroup
+    param_bounds : sequence of (low, high), optional
+        Finite boxes: the starts are a Latin-hypercube design inside them
+        (seed ``seed``) and, with ``bound_fits``, the fits run through the
+        bounds bijection.
+    n_starts, nsteps, learning_rate : int, int, float
+    inits : array (n_starts, ndim), optional
+        Explicit starts (instead of the design; needed without bounds).
+    randkey, const_randkey
+        The model's randomness a step, as in ``run_adam``.
+    k_sharded : "auto" or bool
+        ``"auto"`` and ``False`` run K replicated; ``True`` (K over a
+        replica axis) is not ported yet.
+    telemetry, log_every, live, alerts
+        Not ported yet (telemetry); they raise when given.
+    """
+    _refuse_monitoring(telemetry=telemetry, log_every=log_every, live=live,
+                       alerts=alerts)
+    if inits is None:
+        if param_bounds is None:
+            raise ValueError(
+                "pass param_bounds (finite boxes; inits are sampled "
+                "inside them) or explicit inits")
+        inits = _sample_inits(param_bounds, n_starts, len(param_bounds),
+                              seed)
+    inits = float32_on(inits, model.device)
+    if inits.dim() != 2:
+        raise ValueError(f"inits must be (n_starts, ndim), got shape "
+                         f"{tuple(inits.shape)}")
+    with_key = randkey is not None
+    if const_randkey and not with_key:
+        raise ValueError("Must pass randkey if const_randkey")
+    sharded = resolve_k_sharded(model, inits.shape[0], inits.shape[1],
+                                nsteps, k_sharded=k_sharded)
+    wrapper = batched_fit_wrapper(model, with_key, k_sharded=sharded)
+    leaves = model.aux_leaves()
+
+    def loss_and_grad(p, randkey=None):
+        return wrapper(p, randkey, leaves)
+
+    traj = _adam.run_adam(
+        loss_and_grad, inits, nsteps=nsteps,
+        param_bounds=param_bounds if bound_fits else None,
+        learning_rate=learning_rate, randkey=randkey,
+        const_randkey=const_randkey, progress=False)
+    finals = traj[-1]
+    key = _adam.init_randkey(randkey) if with_key else None
+    losses, _ = wrapper(finals, key, leaves)
+    best = int(torch.argmin(torch.where(torch.isfinite(losses), losses,
+                                        torch.inf)))
+    return EnsembleResult(best_params=finals[best],
+                          best_loss=float(losses[best]), params=finals,
+                          losses=losses, inits=inits, k_sharded=sharded)
+
+
+def hmc_init_from_ensemble(result: EnsembleResult, num_chains: int = 4,
+                           spread: float = 1e-2, randkey=0,
+                           stderr=None) -> torch.Tensor:
+    """``(num_chains, ndim)`` chain starts around an ensemble's winner: a
+    Gaussian scatter of scale ``spread`` (``spread · stderr`` a component
+    when Laplace errors are given, e.g. ``FisherResult.stderr()``) around
+    ``best_params``, drawn from a ``torch.Generator`` seeded with
+    ``randkey`` on the result's device (``None`` means CUDA when
+    ``best_params`` is not a tensor).  It matches the JAX package in
+    distribution only."""
+    best = result.best_params
+    device = best.device if isinstance(best, torch.Tensor) \
+        else resolve_device()
+    best = float32_on(best, device)
+    scale = torch.full_like(best, spread) if stderr is None \
+        else spread * float32_on(stderr, device)
+    gen = torch.Generator(device=device).manual_seed(
+        _adam.init_randkey(randkey))
+    noise = torch.randn((num_chains, best.shape[0]), generator=gen,
+                        device=device)
+    return best[None] + noise * scale[None]

@@ -85,6 +85,11 @@ def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
     included, on the device of ``guess`` (``device`` for a guess that is
     not a tensor; ``None`` means CUDA).
 
+    A ``(K, ndim)`` guess is K independent fits (the update is
+    elementwise; the bounds apply to every row): the trajectory is
+    ``(nsteps + 1, K, ndim)``, and ``loss_and_grad`` takes the batch and
+    may return a ``(K,)`` loss (the ensemble's batched call).
+
     With ``checkpoint_dir`` the fit runs in segments of
     ``checkpoint_every`` steps (default ``max(1, nsteps // 10)``) and
     writes its restart state after each; a call with the same arguments
@@ -114,7 +119,7 @@ def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
         bounds = bounds_to_arrays(param_bounds, params.shape[-1], "cpu") \
             if bounded else ()
         config = np.concatenate([
-            params.cpu().numpy().astype(np.float64),
+            params.cpu().numpy().astype(np.float64).reshape(-1),
             *[b.numpy().astype(np.float64) for b in bounds],
             np.asarray([learning_rate, float(bounded), float(key is not None),
                         float(const_randkey)], np.float64)])

@@ -14,7 +14,8 @@ try:
 except ImportError:  # pragma: no cover
     tqdm = None
 
-__all__ = ["resolve_device", "simple_grad_descent", "GradDescentResult",
+__all__ = ["resolve_device", "simple_grad_descent",
+           "simple_grad_descent_scan", "GradDescentResult",
            "latin_hypercube_sampler", "pad_to_multiple", "trange"]
 
 
@@ -78,6 +79,28 @@ def pad_to_multiple(array, multiple: int, axis: int = 0, pad_value=0.0):
     return torch.cat([array, fill], dim=axis), n
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts, lists,
+    tuples and named tuples of leaves; ``None`` is an empty subtree)."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        out = [tree_map(fn, *items) for items in zip(*trees)]
+        return type(first)(*out) if hasattr(first, "_fields") \
+            else type(first)(out)
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
 def _value_and_grad(loss_func, has_aux):
     def fn(params):
         p = params.detach().requires_grad_(True)
@@ -127,3 +150,30 @@ def simple_grad_descent(loss_func, guess, nsteps, learning_rate,
             pass  # heterogeneous aux stays a list
     return GradDescentResult(loss=torch.stack(losses),
                              params=torch.stack(trajectory), aux=aux_trail)
+
+
+def simple_grad_descent_scan(loss_and_grad_func, guess, nsteps,
+                             learning_rate, has_aux=False):
+    """Fixed-learning-rate gradient descent with the JAX package's
+    ``lax.scan`` contract (parity: ``util.py:240-276``): the host loop of
+    :func:`simple_grad_descent` stands in for the scan, from a float32
+    ``guess``.
+
+    Returns the ``nsteps`` losses, the params *before* each update, and
+    the aux stacked step by step, leaf by leaf (with ``has_aux``; else a
+    list of ``nsteps`` zeros, as the scan's placeholder gives).
+    """
+    fn, trail = loss_and_grad_func, []
+    if has_aux:
+        def fn(params):
+            (loss, aux), grad = loss_and_grad_func(params)
+            trail.append(aux)
+            return loss, grad
+    result = simple_grad_descent(
+        None, torch.as_tensor(guess, dtype=torch.float32), nsteps,
+        learning_rate, loss_and_grad_func=fn, progress=False)
+    if not has_aux:
+        return result._replace(aux=list(torch.zeros(nsteps)))
+    return result._replace(aux=tree_map(
+        lambda *steps: torch.stack([torch.as_tensor(a) for a in steps]),
+        *trail))

@@ -23,6 +23,7 @@ def _python_files():
     yield os.path.join(REPO_ROOT, "tools", "hist_card_vs_cpu.py")
     yield os.path.join(REPO_ROOT, "tools", "pair_kernels_ab.py")
     yield os.path.join(REPO_ROOT, "tools", "streamed_smf.py")
+    yield os.path.join(REPO_ROOT, "tools", "posterior_smf.py")
 
 
 def _imported_roots(path):
@@ -58,6 +59,8 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.data.streaming\n"
         "import multigrad_tpu_torch.utils.profiling\n"
         "import multigrad_tpu_torch.inference.fisher\n"
+        "import multigrad_tpu_torch.inference.ensemble\n"
+        "import multigrad_tpu_torch.inference.hmc\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -87,7 +90,9 @@ def test_no_forbidden_import_in_sources():
             os.path.join("data", "prefetch.py"),
             os.path.join("data", "streaming.py"),
             os.path.join("utils", "profiling.py"),
-            os.path.join("inference", "fisher.py")} <= names
+            os.path.join("inference", "fisher.py"),
+            os.path.join("inference", "ensemble.py"),
+            os.path.join("inference", "hmc.py")} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -100,14 +105,18 @@ def test_no_forbidden_import_in_sources():
                                    "make_xi_data", "make_galaxy_mock",
                                    "make_joint_smf_wprp", "distribute_data",
                                    "simple_grad_descent", "ChunkPrefetcher",
-                                   "StreamingOnePointModel"])
+                                   "StreamingOnePointModel", "run_hmc",
+                                   "run_multistart_adam",
+                                   "hmc_init_from_ensemble"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
-    from multigrad_tpu_torch import (ChunkPrefetcher, StreamingOnePointModel,
-                                     ingraph)
+    from multigrad_tpu_torch import (ChunkPrefetcher, EnsembleResult,
+                                     StreamingOnePointModel,
+                                     hmc_init_from_ensemble, ingraph,
+                                     run_hmc, run_multistart_adam)
     from multigrad_tpu_torch.models import (SMFModel, make_galaxy_mock,
                                             make_galhalo_data,
                                             make_galhalo_hist_data,
@@ -135,6 +144,19 @@ def test_default_device_is_cuda(entry):
             "StreamingOnePointModel": lambda: StreamingOnePointModel(
                 model=SMFModel(aux_data={"volume": 1.0}),
                 streams={"log_halo_masses": np.zeros(4)}, chunk_rows=2),
+            # Models and results that hold no tensor: the run goes to the
+            # card.
+            "run_hmc": lambda: run_hmc(SMFModel(aux_data={"volume": 1.0}),
+                                       [-2.0, 0.2], num_samples=1,
+                                       num_warmup=0),
+            "run_multistart_adam": lambda: run_multistart_adam(
+                SMFModel(aux_data={"volume": 1.0}),
+                param_bounds=[(-4.0, 0.0), (0.02, 1.0)], n_starts=2,
+                nsteps=1),
+            "hmc_init_from_ensemble": lambda: hmc_init_from_ensemble(
+                EnsembleResult(best_params=np.zeros(2), best_loss=0.0,
+                               params=np.zeros((1, 2)), losses=np.zeros(1),
+                               inits=np.zeros((1, 2)))),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
