@@ -103,7 +103,15 @@ order:
     starts in ((-4, 0), (0.02, 1)) (seed 0), 200 steps at 0.05, batched
     Adam steps/s, 8·201 launches of each kernel, the best start within
     0.02 of TRUTH, the best and the worst rows against solo fits (rtol
-    1e-6, bit-identical or not logged), peak memory;
+    1e-6, bit-identical or not logged), peak memory; then the L-BFGS
+    polish the example runs (``run_multistart_lbfgs`` from the two best
+    starts, 60 steps, after a warm-up): seconds, loss-and-grad
+    evaluations (counted on the model) equal to each kernel's launches,
+    peak memory, the best within 0.02 of TRUTH and its loss no higher
+    than the ensemble's best (rtol 1e-4), every loss finite; and the
+    L-BFGS fit card against CPU at 32,768 halos (40 steps from (-1.5,
+    0.4) in the same box): finals within 2e-3, and the first step whose
+    line search takes another number of trials, if any;
 20. HMC: the card against the CPU at 32,768 halos on the same numpy noise
     (2 chains, 5 + 10 draws: every accept decision equal, samples rtol
     1e-3); ``run_hmc`` at 1e8 from the ensemble's best, the inverse mass
@@ -112,13 +120,26 @@ order:
     C·(1 + 200·8) launches of each kernel, no divergence, mean acceptance
     in [0.5, 0.99], R-hat < 1.1, each posterior sd within a factor of 2 of
     the Laplace stderr; a profiler window of 3 leapfrog steps and the
-    device's busy share.
+    device's busy share;
+21. NCCL, the last phase, so no earlier one sees a process group: the
+    launcher's environment of one process (``MASTER_ADDR``, a free
+    ``MASTER_PORT``, ``RANK`` 0, ``WORLD_SIZE`` 1, ``LOCAL_RANK`` 0),
+    ``distributed.initialize()`` (an NCCL group, the process on card 0; a
+    second call a no-op), ``global_comm()`` and ``hybrid_comm()``,
+    ``scatter_nd(..., return_pad_count=True)`` (0 on an even axis),
+    ``reduce_sum`` of a Python float (a float back); phase 5's SMF Adam
+    fit with the comm (20 steps at 1e8 halos), steps/s beside phase 5's,
+    2 all-reduces a step counted, 20 launches of each kernel, the
+    trajectory equal to phase 5's bit for bit (a one-process all-reduce is
+    the identity); the group destroyed.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
 device time per launch in its path's profiler window;
-``launches_batched``, ``launches_ensemble`` and ``launches_hmc`` are its
-launches in phases 18, 19 and 20), the ``nvidia-smi`` line, and
+``launches_batched``, ``launches_ensemble``, ``launches_polish``,
+``launches_hmc`` and ``launches_nccl`` are its launches in phase 18, the
+ensemble and the polish of phase 19, and phases 20 and 21), the
+``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 It imports torch, numpy, the port and ``tools/hist_card_vs_cpu.py``
@@ -216,6 +237,16 @@ ENSEMBLE_STEPS, ENSEMBLE_LR = 200, 0.05
 HMC_CHAINS, HMC_LEAPFROG, HMC_WARMUP, HMC_SAMPLES = 4, 8, 50, 150
 HMC_STEP = 0.5
 HMC_SMALL = 32_768
+# The L-BFGS polish (examples/smf_posterior.py:99-104): the two best Adam
+# starts, 60 steps within POSTERIOR_BOUNDS.  Its best loss may exceed the
+# Adam ensemble's best by POLISH_RTOL relative: the zoom search's
+# approximate-decrease test lets a step raise the loss by up to 1e-6 of
+# it, 6e-5 over 60 steps.  Card against CPU at 32,768 halos: 40 steps from
+# LBFGS_START within POSTERIOR_BOUNDS, finals within LBFGS_ATOL (the JAX
+# package's own run_lbfgs_scan-against-run_bfgs limit,
+# tests/test_optim.py:347-363).
+POLISH_STARTS, POLISH_STEPS, POLISH_RTOL = 2, 60, 1e-4
+LBFGS_START, LBFGS_STEPS, LBFGS_ATOL = (-1.5, 0.4), 40, 2e-3
 
 
 def log(msg):
@@ -823,6 +854,174 @@ def ensemble_phase(reset_launches, read_launches, wrappers, model):
                 solo_sps=ENSEMBLE_STEPS / solo_s)
 
 
+def polish_phase(reset_launches, read_launches, wrappers, model, ens):
+    """Phase 19's L-BFGS polish, as ``examples/smf_posterior.py:99-104``
+    runs it at 1e8 halos: the two best Adam starts, ``run_multistart_lbfgs``
+    for 60 steps, its evaluations counted on the model and its kernel
+    launches by the wrappers."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.inference import run_multistart_lbfgs
+    order = torch.argsort(ens.losses)[:POLISH_STARTS]
+    inits = ens.params[order]
+    kw = dict(param_bounds=POSTERIOR_BOUNDS)
+    run_multistart_lbfgs(model, inits=inits[:1], maxsteps=2, **kw)  # warm-up
+    evaluations = [0]
+    own = model.calc_partial_sumstats_from_params
+
+    def counting(*args, **kwargs):
+        evaluations[0] += 1
+        return own(*args, **kwargs)
+
+    model.calc_partial_sumstats_from_params = counting
+    try:
+        (pol, peak), seconds, launches = counted(
+            reset_launches, read_launches, lambda: peak_above(
+                lambda: run_multistart_lbfgs(model, inits=inits,
+                                             maxsteps=POLISH_STEPS, **kw)))
+    finally:
+        del model.calc_partial_sumstats_from_params
+    n = evaluations[0]
+    steps = POLISH_STARTS * POLISH_STEPS
+    best = pol.best_params.cpu().numpy()
+    log(f"L-BFGS polish: {POLISH_STARTS} starts x {POLISH_STEPS} steps at "
+        f"{BIG_HALOS:,} halos in {seconds:.4f} s; {n} loss-and-grad "
+        f"evaluations ({n / steps:.4f} a step, {1e3 * seconds / n:.4f} ms "
+        f"each); best {best.tolist()} (loss {pol.best_loss:.6g}, Adam's "
+        f"best {ens.best_loss:.6g}); losses {pol.losses.tolist()}; peak "
+        f"{peak / 1e9:.4f} GB above the model; launches {launches}")
+    check(launches == dict.fromkeys(wrappers, 0) | {
+        "erf_counts_fwd": n, "erf_counts_bwd": n},
+        f"polish launches {launches} against {n} evaluations")
+    check(n >= steps, f"{n} evaluations for {steps} L-BFGS steps")
+    check(bool(torch.isfinite(pol.losses).all()),
+          f"a non-finite polish loss: {pol.losses.tolist()}")
+    check(bool(np.all(np.abs(best - np.array(TRUTH)) <= 0.02)),
+          f"the polished best {best} is not within 0.02 of {TRUTH}")
+    check(pol.best_loss <= ens.best_loss * (1 + POLISH_RTOL),
+          f"the polish's best loss {pol.best_loss} exceeds the Adam "
+          f"ensemble's {ens.best_loss} beyond rtol {POLISH_RTOL}")
+    return dict(seconds=seconds, evaluations=n, launches=launches,
+                peak=peak, best=best.tolist(), best_loss=pol.best_loss)
+
+
+def lbfgs_card_phase():
+    """Phase 19's L-BFGS card against CPU: ``run_lbfgs_scan``'s fit (its
+    body ``_lbfgs_fit``, whose ``on_step`` sees each line search) of the
+    same ``SMFChi2Model`` at 32,768 halos on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.models import (SMFChi2Model, aux_from_numpy,
+                                            make_smf_data)
+    from multigrad_tpu_torch.optim.bfgs import _lbfgs_fit
+    arrays = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+              for k, v in make_smf_data(HMC_SMALL).items()}
+    finals, trials = {}, {}
+    for device in ("cuda", "cpu"):
+        m = SMFChi2Model(aux_data=aux_from_numpy(arrays, device=device))
+        seen = []
+        p, losses = _lbfgs_fit(
+            m.calc_loss_and_grad_from_params,
+            torch.tensor(LBFGS_START, device=device), maxsteps=LBFGS_STEPS,
+            param_bounds=POSTERIOR_BOUNDS,
+            on_step=lambda st: seen.append(st.search.num_linesearch_steps))
+        check(p.device.type == device and bool(torch.isfinite(losses).all()),
+              f"L-BFGS on {device}: {p} {losses}")
+        finals[device], trials[device] = p.cpu().numpy(), seen
+    parted = next((k for k, (a, b) in enumerate(zip(trials["cuda"],
+                                                    trials["cpu"]))
+                   if a != b), None)
+    err = float(np.max(np.abs(finals["cuda"] - finals["cpu"])))
+    log(f"L-BFGS at {HMC_SMALL:,} halos, card against CPU, {LBFGS_STEPS} "
+        f"steps from {LBFGS_START}: finals {finals['cuda'].tolist()} and "
+        f"{finals['cpu'].tolist()} (max |diff| {err:.3e}, atol "
+        f"{LBFGS_ATOL}); line-search trials a step on the card "
+        f"{trials['cuda']}, on the CPU {trials['cpu']}; first step where "
+        f"they differ: {parted}")
+    check(err <= LBFGS_ATOL, f"L-BFGS finals differ between the card and "
+          f"the CPU by {err} (> atol {LBFGS_ATOL})")
+    return dict(err=err, parted=parted, trials_cuda=sum(trials["cuda"]),
+                trials_cpu=sum(trials["cpu"]))
+
+
+def nccl_phase(reset_launches, read_launches, wrappers, smf_ref):
+    """Phase 21, the port's first NCCL run: a process group of one process
+    brought up by ``distributed.initialize()`` from a launcher's
+    environment, the collectives on it, and phase 5's SMF Adam fit with a
+    comm, its all-reduces counted, equal to phase 5's bit for bit."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from multigrad_tpu_torch import global_comm, hybrid_comm
+    from multigrad_tpu_torch.models import SMFModel, make_smf_data
+    from multigrad_tpu_torch.parallel import distributed
+    from multigrad_tpu_torch.parallel.collectives import (reduce_sum,
+                                                          scatter_nd)
+    check(not dist.is_initialized(), "a process group before phase 21")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    distributed.initialize()
+    try:
+        check(dist.is_initialized() and dist.get_backend() == "nccl",
+              "distributed.initialize() brought up no NCCL group")
+        group = dist.group.WORLD
+        distributed.initialize()
+        check(dist.group.WORLD is group, "a second initialize() was not a "
+              "no-op")
+        check((distributed.process_index(), distributed.process_count(),
+               distributed.is_main_process()) == (0, 1, True),
+              "process index, count or main")
+        check(torch.cuda.current_device() == 0, "not bound to card 0")
+        comm = global_comm()
+        hybrid = hybrid_comm()
+        check((hybrid.rank, hybrid.size) == (0, 1), f"hybrid_comm {hybrid}")
+        x = torch.arange(8.0, device="cuda")
+        shard, pad = scatter_nd(x, comm=comm, return_pad_count=True)
+        check(pad == 0 and torch.equal(shard, x),
+              f"scatter_nd over one rank: pad {pad}")
+        total = reduce_sum(1.25, comm=comm)
+        check(type(total) is float and total == 1.25,
+              f"reduce_sum of a host float under NCCL: {total!r}")
+        model = SMFModel(aux_data=make_smf_data(BIG_HALOS, comm=comm),
+                         comm=comm)
+        model.run_adam(guess=GUESS, nsteps=2, learning_rate=0.02,
+                       progress=False)  # warm-up
+        sizes, real = [], dist.all_reduce
+
+        def all_reduce(tensor, *args, **kwargs):
+            sizes.append(tensor.numel())
+            return real(tensor, *args, **kwargs)
+
+        dist.all_reduce = all_reduce
+        try:
+            traj, seconds, launches = counted(
+                reset_launches, read_launches, lambda: model.run_adam(
+                    guess=GUESS, nsteps=20, learning_rate=0.02,
+                    progress=False))
+        finally:
+            dist.all_reduce = real
+        sps = 20 / seconds
+        log(f"NCCL, one process: 20 Adam steps at {BIG_HALOS:,} halos with "
+            f"the comm in {seconds:.4f} s = {sps:.2f} steps/s (phase 5 "
+            f"without: {smf_ref['sps']:.2f}); all-reduces {len(sizes)} "
+            f"(sizes {sorted(set(sizes))}); launches {launches}; equal to "
+            f"phase 5 bit for bit: {torch.equal(traj, smf_ref['traj'])}")
+        check(launches == dict.fromkeys(wrappers, 0) | {
+            "erf_counts_fwd": 20, "erf_counts_bwd": 20},
+            f"launches of the NCCL fit: {launches}")
+        check(len(sizes) == 40 and sorted(set(sizes)) == [2, 10],
+              f"all-reduces of 20 steps: {len(sizes)}, sizes {sizes}")
+        check(torch.equal(traj, smf_ref["traj"]), "the NCCL fit differs "
+              "from phase 5's comm=None fit")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 21")
+    return dict(sps=sps, all_reduces=len(sizes), launches=launches)
+
+
 def hmc_phase(reset_launches, read_launches, wrappers, model, ens):
     """Phase 20: HMC, the card against the CPU on the same numpy noise at
     32,768 halos, then ``run_hmc`` at 1e8 from the ensemble's best with
@@ -1193,6 +1392,7 @@ def main():
     log("SMF profile: one erf_fwd_kernel and one erf_bwd_kernel a step, "
         "no sum_rows_kernel, no N-wide multiply")
     smf_traj = traj[:STREAM_STEPS + 1].clone()  # phase 16's reference
+    smf_ref = dict(traj=traj.clone(), sps=20 / seconds)  # phase 21's
     del model, aux, traj
 
     # 6. recovery at 1e6 halos -----------------------------------------
@@ -2026,10 +2226,19 @@ def main():
     ensemble = ensemble_phase(reset_launches, read_launches, wrappers,
                               posterior_model)
     torch.cuda.empty_cache()
+    polish = polish_phase(reset_launches, read_launches, wrappers,
+                          posterior_model, ensemble["ens"])
+    lbfgs_card = lbfgs_card_phase()
+    torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 20")
     hmc = hmc_phase(reset_launches, read_launches, wrappers,
                     posterior_model, ensemble["ens"])
     del posterior_model
+    torch.cuda.empty_cache()
+
+    # 21. the first NCCL run: last, so no earlier phase sees a group ----
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 21")
+    nccl = nccl_phase(reset_launches, read_launches, wrappers, smf_ref)
     torch.cuda.empty_cache()
 
     # summary -----------------------------------------------------------
@@ -2193,7 +2402,9 @@ def main():
         # call of K rows, the ensemble, the HMC run.
         k.update(launches_batched=batched["launches"][k["name"]],
                  launches_ensemble=ensemble["launches"][k["name"]],
-                 launches_hmc=hmc["launches"][k["name"]])
+                 launches_polish=polish["launches"][k["name"]],
+                 launches_hmc=hmc["launches"][k["name"]],
+                 launches_nccl=nccl["launches"][k["name"]])
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
@@ -2213,6 +2424,15 @@ def main():
         f"{ensemble['peak'] / 1e9:.4f} GB); HMC {hmc['dps']:.4f} draws/s "
         f"(peak {hmc['peak'] / 1e9:.4f} GB, busy {100 * hmc['busy']:.1f}% "
         "over 3 leapfrog steps)")
+    log(f"L-BFGS polish at 1e8: {polish['seconds']:.4f} s, "
+        f"{polish['evaluations']} evaluations "
+        f"({polish['evaluations'] / (POLISH_STARTS * POLISH_STEPS):.4f} a "
+        f"step), peak {polish['peak'] / 1e9:.4f} GB; card against CPU at "
+        f"{HMC_SMALL:,}: finals within {lbfgs_card['err']:.3e}, trials "
+        f"first differ at step {lbfgs_card['parted']}")
+    log(f"NCCL, one process: {nccl['sps']:.2f} Adam steps/s with the comm "
+        f"({nccl['all_reduces']} all-reduces in 20 steps), phase 5 "
+        f"{smf_ref['sps']:.2f} without")
     log(f"profiler windows: {WINDOWS['windows']}, run again "
         f"{WINDOWS['retries']} times for a lost lead-in")
     log(f"done in {time.perf_counter() - t_start:.0f} s")

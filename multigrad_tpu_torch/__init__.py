@@ -14,27 +14,35 @@ joint SMF + wp(rp) fit), and Adam checkpoints and resumes
 through a fit in chunks (``StreamingOnePointModel``, exact two-pass
 loss and gradient, a double-buffered prefetcher over pinned memory and
 a copy stream); ``inference`` gives Fisher matrices, resident or
-streamed, multi-start Adam ensembles and multi-chain HMC, both through a
-model's ``(K, ndim)`` batched loss and gradient.  The hot op, the erf-CDF binned counts of the SMF
-and galaxy–halo models, runs as hand-written CUDA kernels on CUDA tensors and as their
-plain PyTorch versions on CPU tensors: the dense counts with a scalar or
-a per-particle sigma (``csrc/erf_counts.cu``) and the fused windowed
+streamed, multi-start Adam ensembles with their L-BFGS polish
+(``run_lbfgs_scan``: optax's L-BFGS and zoom line search, written out)
+and multi-chain HMC, through a model's ``(K, ndim)`` batched loss and
+gradient.  ``parallel.distributed.initialize`` brings the process group
+up from a launcher's environment, each process on its card.  The hot
+op, the erf-CDF binned counts of the SMF and galaxy–halo models, runs as
+hand-written CUDA kernels on CUDA tensors and as their plain PyTorch
+versions on CPU tensors: the dense counts with a scalar or a
+per-particle sigma (``csrc/erf_counts.cu``) and the fused windowed
 counts (``csrc/fused_counts.cu``: window start, masses and their scatter
 into bins in one launch), forward and backward.  The history model's
 integration is PyTorch ops on either device.
 """
+from ._version import __version__  # noqa: F401
 from .parallel.mesh import (MeshComm, global_comm,  # noqa: F401
-                            split_subcomms, split_subcomms_by_node)
+                            hybrid_comm, split_subcomms,
+                            split_subcomms_by_node)
 from .parallel.collectives import (all_gather, reduce_sum,  # noqa: F401
                                    scatter_from_local, scatter_nd)
+from .parallel import distributed  # noqa: F401
 from .core.model import OnePointModel  # noqa: F401
 from .core.group import OnePointGroup, param_view  # noqa: F401
-from .optim.adam import gen_new_key, init_randkey, run_adam  # noqa: F401
-from .optim.bfgs import run_bfgs  # noqa: F401
+from .optim.adam import (gen_new_key, init_randkey,  # noqa: F401
+                         run_adam, run_adam_scan, run_adam_unbounded)
+from .optim.bfgs import run_bfgs, run_lbfgs_scan  # noqa: F401
 from .optim.transforms import (apply_inverse_transforms,  # noqa: F401
                                apply_transforms, inverse_transform,
                                transform)
-from .utils import util  # noqa: F401
+from .utils import diffdesi, util  # noqa: F401
 from .utils.util import (GradDescentResult,  # noqa: F401
                          latin_hypercube_sampler, simple_grad_descent,
                          simple_grad_descent_scan)
@@ -47,13 +55,16 @@ from .inference import (EnsembleResult, FisherResult,  # noqa: F401
                         HMCResult, ensemble_memory_model,
                         fisher_information, hmc_init_from_ensemble,
                         laplace_covariance, max_k_for_budget, run_hmc,
-                        run_multistart_adam, sumstats_jacobian)
+                        run_multistart_adam, run_multistart_lbfgs,
+                        sumstats_jacobian)
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
-    "MeshComm", "global_comm", "split_subcomms", "split_subcomms_by_node",
-    "all_gather", "scatter_nd", "scatter_from_local",
-    "run_adam", "run_bfgs", "simple_grad_descent",
+    "MeshComm", "global_comm", "hybrid_comm", "split_subcomms",
+    "split_subcomms_by_node", "all_gather", "scatter_nd",
+    "scatter_from_local", "distributed", "diffdesi",
+    "run_adam", "run_adam_scan", "run_adam_unbounded", "run_bfgs",
+    "run_lbfgs_scan", "simple_grad_descent",
     "simple_grad_descent_scan", "GradDescentResult",
     "latin_hypercube_sampler",
     "transform", "inverse_transform", "apply_transforms",
@@ -62,6 +73,7 @@ __all__ = [
     "NpzSource", "MemmapSource", "ChunkPrefetcher",
     "inference", "FisherResult", "fisher_information",
     "laplace_covariance", "sumstats_jacobian", "HMCResult", "run_hmc",
-    "EnsembleResult", "run_multistart_adam", "hmc_init_from_ensemble",
-    "ensemble_memory_model", "max_k_for_budget",
+    "EnsembleResult", "run_multistart_adam", "run_multistart_lbfgs",
+    "hmc_init_from_ensemble", "ensemble_memory_model", "max_k_for_budget",
+    "__version__",
 ]

@@ -303,8 +303,8 @@ class OnePointGroup:
                  checkpoint_every=None):
         """Adam over the joint objective; the same host loop on either
         path.  ``checkpoint_dir`` (see
-        :func:`multigrad_tpu_torch.optim.adam.run_adam`) needs the fused
-        path, as in the JAX package."""
+        :func:`multigrad_tpu_torch.optim.adam._run_adam_loop`) needs the
+        fused path, as in the JAX package."""
         if checkpoint_dir is not None and not self.fused:
             raise ValueError(
                 "checkpoint_dir requires the fused group path (every "
@@ -312,7 +312,7 @@ class OnePointGroup:
                 "loss_func_has_aux — see OnePointGroup.fused); this "
                 "group runs the host-loop driver, which does not "
                 "checkpoint")
-        return _adam.run_adam(
+        return _adam._run_adam_loop(
             self.calc_loss_and_grad_from_params, self._params(guess),
             nsteps=nsteps, param_bounds=param_bounds,
             learning_rate=learning_rate, randkey=randkey,

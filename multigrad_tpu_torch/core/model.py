@@ -592,13 +592,24 @@ class OnePointModel:
 
     def run_adam(self, guess, nsteps=100, param_bounds=None,
                  learning_rate=0.01, randkey=None, const_randkey=False,
-                 progress=True, checkpoint_dir=None, checkpoint_every=None):
+                 comm=None, progress=True, checkpoint_dir=None,
+                 checkpoint_every=None, telemetry=None, log_every=0,
+                 donate_carry=None, flight=None, live=None, alerts=None,
+                 diagnostics=False):
         """Adam; returns the ``(nsteps+1, ndim)`` parameter trajectory
-        (see :func:`multigrad_tpu_torch.optim.adam.run_adam`).  With
-        ``checkpoint_dir`` the fit writes its restart state every
+        (see :func:`multigrad_tpu_torch.optim.adam._run_adam_loop`).
+        With ``checkpoint_dir`` the fit writes its restart state every
         ``checkpoint_every`` steps and resumes from it; the model's
-        ``aux_data`` is fingerprinted into the checkpoint."""
-        return _adam.run_adam(
+        ``aux_data`` is fingerprinted into the checkpoint.  ``comm`` is
+        accepted and ignored, as in the JAX package (the model's own comm
+        reduces), and so is ``donate_carry``; the monitoring arguments
+        (``telemetry``, ``log_every``, ``flight``, ``live``, ``alerts``,
+        ``diagnostics``) are not ported yet and raise when given."""
+        del comm, donate_carry
+        _adam._refuse_monitoring(
+            telemetry=telemetry, log_every=log_every, flight=flight,
+            live=live, alerts=alerts, diagnostics=diagnostics)
+        return _adam._run_adam_loop(
             self._fit_loss_and_grad, self._params(guess), nsteps=nsteps,
             param_bounds=param_bounds, learning_rate=learning_rate,
             randkey=randkey, const_randkey=const_randkey, progress=progress,
@@ -606,9 +617,11 @@ class OnePointModel:
             data=self.aux_data, comm=self.comm)
 
     def run_bfgs(self, guess, maxsteps=100, param_bounds=None, randkey=None,
-                 progress=True):
+                 comm=None, progress=True):
         """L-BFGS-B; returns scipy's ``OptimizeResult`` (see
-        :func:`multigrad_tpu_torch.optim.bfgs.run_bfgs`)."""
+        :func:`multigrad_tpu_torch.optim.bfgs.run_bfgs`).  ``comm`` is
+        accepted and ignored, as in the JAX package."""
+        del comm
         return _bfgs.run_bfgs(
             self._fit_loss_and_grad, self._params(guess), maxsteps=maxsteps,
             param_bounds=param_bounds, randkey=randkey, progress=progress)

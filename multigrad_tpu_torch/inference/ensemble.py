@@ -1,4 +1,4 @@
-"""Multi-start Adam ensembles (port of :mod:`multigrad_tpu.inference
+"""Multi-start ensembles (port of :mod:`multigrad_tpu.inference
 .ensemble`).
 
 One-point losses are rarely convex, so a single fit finds *a* basin,
@@ -7,14 +7,14 @@ independent Adam fits as one: Adam's update is elementwise, so a
 ``(K, ndim)`` parameter matrix driven by the model's batched loss and
 gradient (:meth:`~multigrad_tpu_torch.core.model.OnePointModel
 .batched_loss_and_grad_fn`: K rows, 2 all-reduces a step) is K exact
-independent fits.  :func:`hmc_init_from_ensemble` turns the winning
-basin into chain starts for :func:`~multigrad_tpu_torch.inference
-.run_hmc`.
+independent fits.  :func:`run_multistart_lbfgs` polishes starts with
+L-BFGS, one start after another (its curvature pairs couple the
+coordinates), each evaluation one row of the same batched call.
+:func:`hmc_init_from_ensemble` turns the winning basin into chain starts
+for :func:`~multigrad_tpu_torch.inference.run_hmc`.
 
-Not ported yet: ``run_multistart_lbfgs`` (``optim/bfgs.py::
-run_lbfgs_scan``, optax's L-BFGS with its zoom line search, has no port),
-sharded K (no replica axis: ``k_sharded="auto"`` resolves to ``False``
-and ``True`` raises) and the monitoring arguments.
+Not ported yet: sharded K (no replica axis: ``k_sharded="auto"``
+resolves to ``False`` and ``True`` raises) and the monitoring arguments.
 """
 from __future__ import annotations
 
@@ -27,11 +27,14 @@ import torch
 
 from ..core.model import K_SHARDED_NOT_PORTED
 from ..optim import adam as _adam
+from ..optim import bfgs as _bfgs
+from ..optim.adam import _refuse_monitoring
 from ..optim.transforms import bounds_to_arrays
 from ..utils.util import latin_hypercube_sampler, resolve_device
 
 __all__ = ["EnsembleResult", "batched_fit_wrapper",
-           "run_multistart_adam", "hmc_init_from_ensemble",
+           "run_multistart_adam", "run_multistart_lbfgs",
+           "hmc_init_from_ensemble",
            "ensemble_memory_model", "max_k_for_budget",
            "resolve_k_sharded", "resolve_k_shard_topology",
            "k_shards_bucket", "pad_k_to_replicas"]
@@ -43,17 +46,6 @@ ENSEMBLE_STATE_ROWS = 4
 
 #: Bytes of a float32 item: the port's parameters and moments.
 ITEMSIZE = 4
-
-#: The monitoring arguments, which belong to telemetry (not ported yet).
-MONITORING_NOT_PORTED = (
-    "{} is not ported yet (telemetry: ROADMAP.md Queue 1 item 7)")
-
-
-def _refuse_monitoring(**given):
-    for name, value in given.items():
-        if value not in (None, 0):
-            raise NotImplementedError(MONITORING_NOT_PORTED.format(name))
-
 
 def ensemble_memory_model(k: int, ndim: int, nsteps: int, *,
                           n_replicas: int = 1, catalog_bytes: int = 0,
@@ -226,7 +218,7 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
     """K independent Adam fits as one batched fit (parity:
     ``inference/ensemble.py:296-434`` of the JAX package).
 
-    One :func:`~multigrad_tpu_torch.optim.adam.run_adam` call on the
+    One :func:`~multigrad_tpu_torch.optim.adam._run_adam_loop` call on the
     ``(K, ndim)`` starts through :func:`batched_fit_wrapper` (each step
     one batched loss and gradient), then one batched evaluation of the
     finals; the best start is the ``argmin`` over finite losses.
@@ -273,7 +265,7 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
     def loss_and_grad(p, randkey=None):
         return wrapper(p, randkey, leaves)
 
-    traj = _adam.run_adam(
+    traj = _adam._run_adam_loop(
         loss_and_grad, inits, nsteps=nsteps,
         param_bounds=param_bounds if bound_fits else None,
         learning_rate=learning_rate, randkey=randkey,
@@ -286,6 +278,59 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
     return EnsembleResult(best_params=finals[best],
                           best_loss=float(losses[best]), params=finals,
                           losses=losses, inits=inits, k_sharded=sharded)
+
+
+def _lbfgs_polish_objective(model, with_key: bool):
+    """``loss_and_grad(p, randkey=None) -> (loss, grad)`` for the L-BFGS
+    polish: one row of the model's cached :func:`batched_fit_wrapper`
+    (the call the Adam ensemble makes), itself cached on the model."""
+    cache = model.__dict__.setdefault("_program_cache", {})
+    key = ("multistart_lbfgs_objective", bool(with_key))
+    if key not in cache:
+        wrapper = batched_fit_wrapper(model, with_key)
+        leaves = model.aux_leaves()
+
+        def loss_and_grad(p, randkey=None):
+            losses, grads = wrapper(p[None], randkey, leaves)
+            return losses[0], grads[0]
+        cache[key] = loss_and_grad
+    return cache[key]
+
+
+def run_multistart_lbfgs(model, param_bounds=None, n_starts: int = 8,
+                         maxsteps: int = 100, inits=None, seed: int = 0,
+                         randkey=None, memory_size: int = 10
+                         ) -> EnsembleResult:
+    """K L-BFGS fits from scattered starts, one after another (parity:
+    ``inference/ensemble.py:466-507`` of the JAX package): each start
+    runs :func:`~multigrad_tpu_torch.optim.bfgs.run_lbfgs_scan` on
+    :func:`_lbfgs_polish_objective`.  Typically the polish after
+    :func:`run_multistart_adam` has ranked the basins: pass its best
+    finals as ``inits``.  Each start's loss is its fit's last (the loss
+    at the iterate before the last step); the best start is the
+    ``argmin`` over the finite ones."""
+    if inits is None:
+        if param_bounds is None:
+            raise ValueError(
+                "pass param_bounds (finite boxes; inits are sampled "
+                "inside them) or explicit inits")
+        inits = _sample_inits(param_bounds, n_starts, len(param_bounds),
+                              seed)
+    inits = float32_on(inits, model.device)
+    loss_and_grad = _lbfgs_polish_objective(model, randkey is not None)
+    finals, losses = [], []
+    for init in inits:
+        u, traj_losses = _bfgs.run_lbfgs_scan(
+            loss_and_grad, init, maxsteps=maxsteps, randkey=randkey,
+            memory_size=memory_size, param_bounds=param_bounds)
+        finals.append(u)
+        losses.append(traj_losses[-1])
+    finals, losses = torch.stack(finals), torch.stack(losses)
+    best = int(torch.argmin(torch.where(torch.isfinite(losses), losses,
+                                        torch.inf)))
+    return EnsembleResult(best_params=finals[best],
+                          best_loss=float(losses[best]), params=finals,
+                          losses=losses, inits=inits)
 
 
 def hmc_init_from_ensemble(result: EnsembleResult, num_chains: int = 4,

@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 from ..core.model import K_SHARDED_NOT_PORTED
-from ..optim.adam import init_randkey
-from .ensemble import _refuse_monitoring, float32_on
+from ..optim.adam import _refuse_monitoring, init_randkey
+from .ensemble import float32_on
 
 __all__ = ["HMCResult", "run_hmc", "split_rhat", "effective_sample_size"]
 

@@ -1,5 +1,13 @@
 """Adam optimization, host loop (port of :mod:`multigrad_tpu.optim.adam`).
 
+Every entry point runs one host loop, :func:`_run_adam_loop`, over the
+JAX package's contracts: :func:`run_adam` and :func:`run_adam_unbounded`
+call ``logloss_and_grad_fn(params, data[, randkey=key])`` (the
+reference's generic form), :func:`run_adam_scan` calls
+``loss_and_grad(params, key, *fn_args)``, and the models' ``run_adam``
+and :func:`run_adam_streamed` call ``loss_and_grad(params[,
+randkey=key])``.
+
 The update is optax's ``adam`` written out: ``b1=0.9``, ``b2=0.999``,
 ``eps=1e-8`` outside the square root, bias-corrected moments.  Each
 step is one call of the loss-and-grad function and a few elementwise
@@ -62,22 +70,26 @@ def gen_new_key(randkey: int) -> int:
 
 
 def _wrap_bounded(loss_and_grad, low, high):
-    """Loss-and-grad in unbounded space with the diagonal chain rule."""
-    def unbound_loss_and_grad(uparams, **kwargs):
+    """Loss-and-grad in unbounded space with the diagonal chain rule;
+    positional and keyword arguments after the parameters pass
+    through."""
+    def unbound_loss_and_grad(uparams, *args, **kwargs):
         loss, grad = loss_and_grad(
-            inverse_transform_array(uparams, low, high), **kwargs)
+            inverse_transform_array(uparams, low, high), *args, **kwargs)
         return loss, grad * inverse_transform_diag_jacobian(uparams, low,
                                                             high)
     return unbound_loss_and_grad
 
 
-def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
-             param_bounds=None, learning_rate: float = 0.01, randkey=None,
-             const_randkey: bool = False, progress: bool = True,
-             device=None, checkpoint_dir: Optional[str] = None,
-             checkpoint_every: Optional[int] = None, data=None,
-             comm: Optional[MeshComm] = None):
-    """Adam on ``loss_and_grad(params[, randkey=key]) -> (loss, grad)``.
+def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
+                   param_bounds=None, learning_rate: float = 0.01,
+                   randkey=None, const_randkey: bool = False,
+                   progress: bool = True, device=None,
+                   checkpoint_dir: Optional[str] = None,
+                   checkpoint_every: Optional[int] = None, data=None,
+                   comm: Optional[MeshComm] = None):
+    """The host loop every Adam entry point runs: Adam on
+    ``loss_and_grad(params[, randkey=key]) -> (loss, grad)``.
 
     With ``param_bounds`` (a sequence of ``None | (low, high)``) the loop
     runs in unbounded space through the bijection.  Returns the
@@ -173,6 +185,109 @@ def run_adam(loss_and_grad: Callable, guess, nsteps: int = 100,
     return traj
 
 
+#: The monitoring arguments, which belong to telemetry (not ported yet).
+MONITORING_NOT_PORTED = (
+    "{} is not ported yet (telemetry: ROADMAP.md Queue 1 item 7)")
+
+
+def _refuse_monitoring(**given):
+    """Raise ``NotImplementedError`` for a monitoring argument given a
+    value other than ``None``, 0 or ``False``."""
+    for name, value in given.items():
+        if value not in (None, 0):
+            raise NotImplementedError(MONITORING_NOT_PORTED.format(name))
+
+
+def run_adam_unbounded(logloss_and_grad_fn, params, data, nsteps=100,
+                       learning_rate=0.01, randkey=None, progress=True,
+                       device=None):
+    """Adam on ``logloss_and_grad_fn(params, data[, randkey=key]) -> (loss,
+    grad)`` (parity: ``optim/adam.py:1259-1290`` of the JAX package, the
+    reference's contract).  Returns the ``(nsteps + 1, ndim)`` trajectory
+    on the device of ``params`` (``device`` for params that are not a
+    tensor; ``None`` means CUDA)."""
+    return _run_adam_loop(
+        lambda p, **kwargs: logloss_and_grad_fn(p, data, **kwargs), params,
+        nsteps=nsteps, learning_rate=learning_rate, randkey=randkey,
+        progress=progress, device=device)
+
+
+def run_adam(logloss_and_grad_fn, params, data, nsteps=100,
+             param_bounds=None, learning_rate=0.01, randkey=None,
+             progress=True, device=None):
+    """Adam on ``logloss_and_grad_fn(params, data[, randkey=key])``,
+    through the bounds bijection with ``param_bounds`` (a sequence of
+    ``None | (low, high)``, one a parameter, the start strictly inside)
+    (parity: ``optim/adam.py:1293-1319`` of the JAX package).  Returns
+    the ``(nsteps + 1, ndim)`` trajectory, as
+    :func:`run_adam_unbounded`."""
+    if param_bounds is None:
+        return run_adam_unbounded(
+            logloss_and_grad_fn, params, data, nsteps=nsteps,
+            learning_rate=learning_rate, randkey=randkey, progress=progress,
+            device=device)
+    n = len(params)
+    if n != len(param_bounds):
+        raise ValueError(
+            f"param_bounds must have one entry per parameter: got "
+            f"{len(param_bounds)} bounds for {n} params")
+    return _run_adam_loop(
+        lambda p, **kwargs: logloss_and_grad_fn(p, data, **kwargs), params,
+        nsteps=nsteps, param_bounds=param_bounds,
+        learning_rate=learning_rate, randkey=randkey, progress=progress,
+        device=device)
+
+
+def run_adam_scan(loss_and_grad: Callable, params, nsteps: int = 100,
+                  param_bounds=None, learning_rate: float = 0.01,
+                  randkey=None, const_randkey: bool = False,
+                  progress: bool = False, fn_args=(),
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: Optional[int] = None, telemetry=None,
+                  log_every: int = 0, donate_carry: Optional[bool] = None,
+                  flight=None, live=None, alerts=None,
+                  diagnostics: bool = False, fn_diag: bool = False,
+                  carry_sharding=None, device=None):
+    """Adam on ``loss_and_grad(params, key, *fn_args) -> (loss, grad)``
+    (the contract of the JAX package's ``run_adam_scan``,
+    ``optim/adam.py:675``), on the port's host loop.
+
+    ``key`` is the step's integer seed: split off ``randkey`` each step,
+    ``randkey`` itself with ``const_randkey``, and 0 without ``randkey``
+    (the JAX package passes ``jax.random.key(0)`` there).  ``params`` may
+    be ``(K, ndim)``, K independent fits.  With ``checkpoint_dir`` (1-D
+    params only, as in the JAX package) the fit writes its restart state
+    every ``checkpoint_every`` steps and resumes from it; ``fn_args`` is
+    fingerprinted into it.  ``donate_carry`` is accepted and has no
+    effect (a host loop has no carry to donate).  The monitoring
+    arguments (``telemetry``, ``log_every``, ``flight``, ``live``,
+    ``alerts``, ``diagnostics``, ``fn_diag``) and ``carry_sharding``
+    (sharded K) are not ported yet and raise when given.
+    """
+    del donate_carry
+    _refuse_monitoring(telemetry=telemetry, log_every=log_every,
+                       flight=flight, live=live, alerts=alerts,
+                       diagnostics=diagnostics, fn_diag=fn_diag,
+                       carry_sharding=carry_sharding)
+    fn_args = tuple(fn_args)
+    ndim = params.dim() if isinstance(params, torch.Tensor) \
+        else np.ndim(params)
+    if checkpoint_dir is not None and ndim != 1:
+        raise ValueError(
+            "checkpoint_dir requires 1-D params (the restart state "
+            f"layout is per-fit); got shape {np.shape(params)}")
+
+    def fn(p, randkey=0):
+        return loss_and_grad(p, randkey, *fn_args)
+
+    return _run_adam_loop(
+        fn, params, nsteps=nsteps, param_bounds=param_bounds,
+        learning_rate=learning_rate, randkey=randkey,
+        const_randkey=const_randkey, progress=progress, device=device,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        data=fn_args)
+
+
 def run_adam_streamed(loss_and_grad: Callable, params, nsteps: int = 100,
                       param_bounds=None, learning_rate: float = 0.01,
                       randkey=None, const_randkey: bool = False,
@@ -187,7 +302,7 @@ def run_adam_streamed(loss_and_grad: Callable, params, nsteps: int = 100,
     Each step calls ``loss_and_grad(params[, randkey=...]) -> (loss,
     grad)``, which for a streamed model runs the two-pass chunked chain
     rule (or the scan path) on the host.  The same host loop as
-    :func:`run_adam`, so the same trajectory contract, bounds and
+    :func:`_run_adam_loop`, so the same trajectory contract, bounds and
     checkpointing: with ``checkpoint_dir`` the restart state is written
     every ``checkpoint_every`` steps and a call with the same arguments
     resumes from it.  The streamed catalog is not fingerprinted into the
@@ -195,11 +310,12 @@ def run_adam_streamed(loss_and_grad: Callable, params, nsteps: int = 100,
     across a resume.  ``comm``: the processes that run the fit together
     (its rank 0 writes the checkpoint).
     """
-    return run_adam(loss_and_grad, params, nsteps=nsteps,
-                    param_bounds=param_bounds, learning_rate=learning_rate,
-                    randkey=randkey, const_randkey=const_randkey,
-                    progress=progress, checkpoint_dir=checkpoint_dir,
-                    checkpoint_every=checkpoint_every, data=None, comm=comm)
+    return _run_adam_loop(
+        loss_and_grad, params, nsteps=nsteps, param_bounds=param_bounds,
+        learning_rate=learning_rate, randkey=randkey,
+        const_randkey=const_randkey, progress=progress,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        data=None, comm=comm)
 
 
 #: Bytes of a leaf copied to the host at a time for its checksum.

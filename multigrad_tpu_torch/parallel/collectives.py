@@ -59,19 +59,26 @@ def reduce_sum(value, root: Optional[int] = None,
 
 
 def scatter_nd(array, axis: int = 0, comm: Optional[MeshComm] = None,
-               pad_value=None):
+               root: int = 0, pad_value=None, return_pad_count: bool = False):
     """This process's shard of ``array`` along ``axis``.
 
     Shards are equal: a length that ``comm.size`` does not divide is
     padded first with ``pad_value``, which must be neutral for the
     model's statistic (``inf`` log-mass for the erf counts).  Without
     ``pad_value`` a ragged axis raises.  ``comm=None`` returns the array.
+    ``root`` is accepted and ignored, as in the JAX package (every
+    process takes its own shard).  With ``return_pad_count=True`` the
+    return is ``(shard, pad_count)``, ``pad_count`` the number of rows
+    appended to the global axis (0 when it divided evenly, and for
+    ``comm=None``).
     """
+    del root
     array = torch.as_tensor(array)
     if comm is None:
-        return array
+        return (array, 0) if return_pad_count else array
     n = array.shape[axis]
-    if n % comm.size:
+    pad_count = (-n) % comm.size
+    if pad_count:
         if pad_value is None:
             raise ValueError(
                 f"scatter_nd: axis {axis} of length {n} is not divisible "
@@ -81,7 +88,8 @@ def scatter_nd(array, axis: int = 0, comm: Optional[MeshComm] = None,
         array, _ = pad_to_multiple(array, comm.size, axis=axis,
                                    pad_value=pad_value)
     per = array.shape[axis] // comm.size
-    return array.narrow(axis, comm.rank * per, per).contiguous()
+    shard = array.narrow(axis, comm.rank * per, per).contiguous()
+    return (shard, pad_count) if return_pad_count else shard
 
 
 def all_gather(value, comm: Optional[MeshComm] = None, axis: int = 0):

@@ -8,9 +8,10 @@ all-reduces the O(|sumstats| + |params|) results.  When
 ``torch.distributed`` is not initialised the comm is the single-process
 identity.
 
-The caller sets up the process group itself
-(``torch.distributed.init_process_group`` with its address, world size
-and rank): NCCL for CUDA tensors, gloo for CPU tensors.
+Each process brings the process group up with
+:func:`~multigrad_tpu_torch.parallel.distributed.initialize`, from its
+launcher's environment or explicit arguments: NCCL for CUDA tensors, the
+process bound to its card, gloo for CPU tensors.
 
 Sub-communicators (:func:`split_subcomms`, :func:`split_subcomms_by_node`)
 are ``torch.distributed.new_group`` groups.  Creating a group is
@@ -100,9 +101,13 @@ class MeshComm:
 
     def psum(self, value: torch.Tensor) -> torch.Tensor:
         """Sum of ``value`` over the group, on every process (a new
-        tensor; the input is left as it was)."""
-        if self.size == 1:
+        tensor; the input is left as it was).  Under a process group the
+        all-reduce runs whatever the group's size, one process too (where
+        it is the identity); without one, ``value`` comes back as it
+        is."""
+        if not self.distributed:
             return value
+        self._require_member("sum")
         out = value.detach().clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
@@ -214,3 +219,33 @@ def split_subcomms_by_node(comm: Optional[MeshComm] = None):
     labels = np.array([order.index(h) for h in names])
     subcomms, my_group = _new_groups(comm, labels, len(order))
     return subcomms, len(order), my_group
+
+
+def _node_major(hosts) -> bool:
+    """Whether each host's ranks are one contiguous block of ``hosts``
+    (the host name of each rank, in rank order)."""
+    runs = [h for i, h in enumerate(hosts) if i == 0 or h != hosts[i - 1]]
+    return len(runs) == len(set(runs))
+
+
+def hybrid_comm(ici_axis: str = "data", dcn_axis: str = "hosts",
+                name: str = "WORLD") -> MeshComm:
+    """The world comm, its ranks checked node-major: each host's ranks one
+    contiguous block, so a shard scattered over it is host-major (the
+    layout of the JAX package's ``hybrid_comm``, whose mesh puts the
+    inter-host axis outermost).  The host names are exchanged with
+    ``all_gather_object``, as :func:`split_subcomms_by_node` does; a
+    layout that is not node-major raises ``ValueError``.  The axis names
+    keep the JAX package's signature and name no mesh axis here: NCCL
+    picks the links of an all-reduce itself.  Collective over the
+    world."""
+    del ici_axis, dcn_axis
+    comm = MeshComm(name=name)
+    if comm.distributed:
+        hosts = [None] * dist.get_world_size()
+        dist.all_gather_object(hosts, socket.gethostname())
+        if not _node_major(hosts):
+            raise ValueError(
+                "hybrid_comm: the ranks are not node-major (each host's "
+                f"ranks one contiguous block); hosts by rank: {hosts}")
+    return comm

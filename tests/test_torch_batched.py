@@ -1,7 +1,7 @@
 """The port's batched evaluation surface against solo calls and the JAX
 package: ``aux_leaves``, ``loss_and_grad_fn``, ``batched_loss_and_grad_fn``
 and ``run_lhs_param_scan`` on ``OnePointModel`` and the fused
-``OnePointGroup``, ``simple_grad_descent_scan``, and ``run_adam`` on a
+``OnePointGroup``, ``simple_grad_descent_scan``, and the Adam loop on a
 ``(K, ndim)`` guess; gloo runs at 2 ranks count the all-reduces.
 
 Tolerances.  A batched row equals the solo call at its parameters bit for
@@ -42,7 +42,7 @@ from multigrad_tpu_torch.core.model import OnePointModel
 from multigrad_tpu_torch.models import (SMFChi2Model, SMFModel,
                                         aux_from_numpy, make_joint_smf_wprp,
                                         make_smf_data)
-from multigrad_tpu_torch.optim.adam import run_adam
+from multigrad_tpu_torch.optim.adam import _run_adam_loop
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
@@ -376,8 +376,8 @@ def test_adam_on_a_batch_is_independent_fits(models, bounds):
         return losses, grads
 
     inits = torch.tensor(SMF_ROWS[1:])
-    traj = run_adam(batched, inits, nsteps=15, param_bounds=bounds,
-                    learning_rate=0.05, progress=False, device=CPU)
+    traj = _run_adam_loop(batched, inits, nsteps=15, param_bounds=bounds,
+                          learning_rate=0.05, progress=False, device=CPU)
     assert tuple(traj.shape) == (16, 4, 2)
     assert tuple(losses_seen[0].shape) == (4,)
     for k in range(4):
@@ -398,19 +398,19 @@ def test_adam_batch_bounds_and_checkpoint(models, tmp_path):
     bounds = [(-4.0, 0.0), (0.02, 1.0)]
     outside = torch.tensor([[-2.0, 0.2], [-2.0, 1.5]])
     with pytest.raises(ValueError, match="strictly inside"):
-        run_adam(batched, outside, nsteps=2, param_bounds=bounds,
-                 progress=False)
+        _run_adam_loop(batched, outside, nsteps=2, param_bounds=bounds,
+                       progress=False)
     inits = torch.tensor(SMF_ROWS[1:])
-    plain = run_adam(batched, inits, nsteps=6, param_bounds=bounds,
-                     learning_rate=0.05, progress=False)
+    plain = _run_adam_loop(batched, inits, nsteps=6, param_bounds=bounds,
+                           learning_rate=0.05, progress=False)
     kw = dict(nsteps=6, param_bounds=bounds, learning_rate=0.05,
               progress=False, checkpoint_dir=str(tmp_path),
               checkpoint_every=2, data=model.aux_data)
-    first = run_adam(batched, inits, **kw)
-    again = run_adam(batched, inits, **kw)   # a pure read
+    first = _run_adam_loop(batched, inits, **kw)
+    again = _run_adam_loop(batched, inits, **kw)   # a pure read
     assert torch.equal(first, plain) and torch.equal(again, plain)
     with pytest.raises(ValueError, match="different fit configuration"):
-        run_adam(batched, inits + 0.01, **kw)
+        _run_adam_loop(batched, inits + 0.01, **kw)
 
 
 # --------------------------------------------------------------------- #

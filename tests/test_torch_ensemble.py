@@ -8,10 +8,15 @@ box by the same Latin-hypercube design): rtol 1e-4 (measured 1.2e-6), and
 the starts equal.  Each row of an ensemble equals a solo ``run_adam`` from
 its start bit for bit, on the SMF χ² model and the joint group, bounded
 and not (measured on the CPU).  The memory model and K helpers equal the
-JAX package's at 4-byte items.  The SMF model is not held against the JAX
-package's ensemble: its loss differs from the JAX package's by up to 7e-4
-relative (``tests/test_torch_smf.py``), and a start still converging after
-200 steps moves by up to 4e-3 with it.
+JAX package's at 4-byte items.  The L-BFGS polish on the
+linear-Gaussian model: the best start against the JAX package's and the
+MLE at atol 1e-3 (the JAX test's limit; measured 4.8e-7 and 1.9e-6), each
+start's final against the JAX package's at atol 1e-4 (measured 1.1e-6);
+on the SMF χ² model each start equals a solo ``run_lbfgs_scan`` on one
+row of the batched call bit for bit.  The SMF model is not held against
+the JAX package's ensemble: its loss differs from the JAX package's by up
+to 7e-4 relative (``tests/test_torch_smf.py``), and a start still
+converging after 200 steps moves by up to 4e-3 with it.
 """
 from dataclasses import dataclass, field
 
@@ -26,7 +31,8 @@ from multigrad_tpu_torch.inference import (EnsembleResult,
                                            hmc_init_from_ensemble,
                                            max_k_for_budget,
                                            resolve_k_sharded,
-                                           run_multistart_adam)
+                                           run_multistart_adam,
+                                           run_multistart_lbfgs)
 from multigrad_tpu_torch.inference import ensemble as ens_mod
 from multigrad_tpu_torch.models import (SMFChi2Model, aux_from_numpy,
                                         make_joint_smf_wprp, make_smf_data)
@@ -246,3 +252,63 @@ def test_hmc_init_from_ensemble(models, prob):
     np.testing.assert_allclose(
         (scaled - ens.best_params).numpy(),
         (init - ens.best_params).numpy() * stderr, rtol=1e-4, atol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# The L-BFGS polish
+# --------------------------------------------------------------------- #
+POLISH_OFFSETS = np.array([[0.2, -0.1, 0.1], [-0.3, 0.2, -0.2]], np.float32)
+
+
+def test_multistart_lbfgs_polish_matches_jax(models, prob):
+    from multigrad_tpu.inference import \
+        run_multistart_lbfgs as jax_run_multistart_lbfgs
+    pm, jm = models
+    inits = np.tile(prob["mle"], (2, 1)) + POLISH_OFFSETS
+    got = run_multistart_lbfgs(pm, inits=inits, maxsteps=60)
+    want = jax_run_multistart_lbfgs(jm, inits=inits, maxsteps=60)
+    assert isinstance(got, EnsembleResult) and got.n_starts == 2
+    np.testing.assert_allclose(got.best_params.numpy(), prob["mle"],
+                               atol=1e-3)
+    np.testing.assert_allclose(got.best_params.numpy(),
+                               np.asarray(want.best_params), atol=1e-3)
+    np.testing.assert_allclose(got.params.numpy(), np.asarray(want.params),
+                               atol=1e-4)
+    assert got.best_loss == pytest.approx(float(got.losses.min()))
+    np.testing.assert_array_equal(got.inits.numpy(), inits)
+
+
+def test_multistart_lbfgs_starts_are_solo_fits(smf):
+    from multigrad_tpu_torch import run_lbfgs_scan
+    inits = np.array([[-1.9, 0.25], [-2.3, 0.15]], np.float32)
+    ens = run_multistart_lbfgs(smf, inits=inits, maxsteps=8,
+                               param_bounds=SMF_BOUNDS)
+    row = ens_mod._lbfgs_polish_objective(smf, False)
+    for k in range(2):
+        p, losses = run_lbfgs_scan(row, torch.tensor(inits[k]), maxsteps=8,
+                                   param_bounds=SMF_BOUNDS)
+        assert torch.equal(ens.params[k], p) and torch.equal(
+            ens.losses[k], losses[-1]), k
+    # The row is the model's own loss and gradient.
+    loss, grad = row(torch.tensor([-2.0, 0.2]))
+    want = smf.calc_loss_and_grad_from_params(torch.tensor([-2.0, 0.2]))
+    assert torch.equal(loss, want[0]) and torch.equal(grad, want[1])
+
+
+def test_lbfgs_polish_objective_is_cached_on_the_model(smf):
+    a = ens_mod._lbfgs_polish_objective(smf, False)
+    assert ens_mod._lbfgs_polish_objective(smf, False) is a
+    assert ens_mod._lbfgs_polish_objective(smf, True) is not a
+    other = SMFChi2Model(aux_data=make_smf_data(1_000, device=CPU))
+    assert ens_mod._lbfgs_polish_objective(other, False) is not a
+
+
+def test_multistart_lbfgs_samples_or_raises(smf):
+    with pytest.raises(ValueError, match="param_bounds"):
+        run_multistart_lbfgs(smf, n_starts=2, maxsteps=2)
+    ens = run_multistart_lbfgs(smf, param_bounds=SMF_BOUNDS, n_starts=3,
+                               maxsteps=2, seed=1)
+    np.testing.assert_array_equal(
+        ens.inits.numpy(),
+        ens_mod._sample_inits(SMF_BOUNDS, 3, 2, 1).astype(np.float32))
+    assert tuple(ens.params.shape) == (3, 2) and ens.losses.shape == (3,)

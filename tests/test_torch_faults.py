@@ -1,4 +1,4 @@
-"""Two faults of the port against the reference, held on the CPU.
+"""Faults of the port against the reference, held on the CPU.
 
 * ``reduce_sum`` of a host value under NCCL: NCCL reduces only CUDA
   tensors, so a Python scalar or a CPU tensor must go through the current
@@ -7,12 +7,26 @@
   are needed.
 * Progress bars on process 0 only (``multigrad_tpu/utils/util.py``'s
   ``simple_grad_descent`` and ``optim/bfgs.py`` show theirs there only).
+* Public signatures the port had changed, each called as the JAX
+  package's tests call the reference: ``scatter_nd``'s ``root`` and
+  ``return_pad_count``; ``comm`` in ``run_bfgs`` and the model's
+  ``run_adam`` and ``run_bfgs``; the generic ``run_adam(f, params, data)``
+  and ``run_adam_unbounded``, and ``run_adam_scan``'s ``(params, key,
+  *fn_args)``.  Trajectories against the JAX package's on the same
+  objective: rtol 1e-5 (optax's Adam and the port's loop are the same
+  float32 ops, but XLA may contract them into FMAs).
 """
+import inspect
+
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from multigrad_tpu_torch.parallel.collectives import reduce_sum
+import multigrad_tpu_torch as mgtt
+from multigrad_tpu_torch.core.model import OnePointModel
+from multigrad_tpu_torch.models import SMFModel, make_smf_data
+from multigrad_tpu_torch.parallel.collectives import reduce_sum, scatter_nd
 from multigrad_tpu_torch.parallel.mesh import MeshComm
 from multigrad_tpu_torch.utils import util
 
@@ -95,3 +109,165 @@ def test_progress_bar_without_a_process_group(monkeypatch):
     assert (steps == range(2)) if util.tqdm is None else len(steps) == 2
     if not isinstance(steps, range):
         steps.close()
+
+
+# --------------------------------------------------------------------- #
+# Public signatures: the port's against the JAX package's
+# --------------------------------------------------------------------- #
+class _Rank:
+    """A stand-in comm of two processes, seen from rank 1."""
+    rank, size = 1, 2
+
+
+def test_scatter_nd_positional_root_raises_on_a_ragged_axis():
+    # scatter_nd(x, axis, comm, root): a root of 0 is no pad value.
+    with pytest.raises(ValueError, match="not divisible"):
+        scatter_nd(torch.arange(5.0), 0, _Rank(), 0)
+    shard = scatter_nd(torch.arange(6.0), 0, _Rank(), 0)
+    np.testing.assert_array_equal(shard.numpy(), [3.0, 4.0, 5.0])
+
+
+def test_scatter_nd_return_pad_count():
+    x = torch.arange(5.0)
+    shard, pad = scatter_nd(x, comm=_Rank(), pad_value=float("inf"),
+                            return_pad_count=True)
+    assert pad == 1
+    np.testing.assert_array_equal(shard.numpy(), [3.0, 4.0, np.inf])
+    shard, pad = scatter_nd(torch.arange(6.0), comm=_Rank(),
+                            return_pad_count=True)
+    assert pad == 0 and shard.tolist() == [3.0, 4.0, 5.0]
+    whole, pad = scatter_nd(x, return_pad_count=True)
+    assert pad == 0 and whole is x
+
+
+def _quadratic(p, *rest, **kwargs):
+    return ((p - 1.0) ** 2).sum(), 2.0 * (p - 1.0)
+
+
+def test_run_bfgs_takes_comm_in_the_sixth_slot():
+    args = (_quadratic, torch.tensor([0.3, -0.2]), 50, None, None,
+            MeshComm())
+    result = mgtt.run_bfgs(*args, progress=False)
+    np.testing.assert_allclose(result.x, [1.0, 1.0], atol=1e-5)
+    again = mgtt.run_bfgs(_quadratic, torch.tensor([0.3, -0.2]),
+                          maxsteps=50, comm=None, progress=False)
+    np.testing.assert_array_equal(result.x, again.x)
+
+
+def test_model_fits_take_comm():
+    model = SMFModel(aux_data=make_smf_data(2_000, device="cpu"))
+    traj = model.run_adam((-1.5, 0.4), 3, None, 0.02, None, False,
+                          MeshComm(), False)
+    alone = model.run_adam(guess=(-1.5, 0.4), nsteps=3, learning_rate=0.02,
+                           progress=False)
+    assert torch.equal(traj, alone)
+    result = model.run_bfgs((-1.5, 0.4), 5, None, None, MeshComm(), False)
+    assert np.all(np.isfinite(result.x))
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        model.run_adam(guess=(-1.5, 0.4), nsteps=1, telemetry=object(),
+                       progress=False)
+
+
+def _generic(p, data, randkey=None):
+    """``(loss, grad)`` of ``Σ (p - data)²`` for jnp and torch alike."""
+    return ((p - data) ** 2).sum(), 2.0 * (p - data)
+
+
+@pytest.mark.parametrize("bounds", [None, [(-2.0, 2.0), (0.0, 3.0)]],
+                         ids=["unbounded", "bounded"])
+def test_run_adam_takes_data_as_the_reference(bounds):
+    import jax.numpy as jnp
+    from multigrad_tpu.optim.adam import run_adam as jax_run_adam
+    data = np.array([0.5, 2.0], np.float32)
+    start = np.array([-1.0, 1.0], np.float32)
+    want = np.asarray(jax_run_adam(_generic, jnp.asarray(start),
+                                   jnp.asarray(data), nsteps=5,
+                                   param_bounds=bounds, learning_rate=0.1,
+                                   progress=False))
+    got = mgtt.run_adam(_generic, torch.tensor(start), torch.tensor(data),
+                        nsteps=5, param_bounds=bounds, learning_rate=0.1,
+                        progress=False)
+    assert tuple(got.shape) == (6, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    # run_adam(f, p, data) keeps nsteps at its default of 100.
+    assert mgtt.run_adam(_generic, torch.tensor(start), torch.tensor(data),
+                         progress=False).shape[0] == 101
+    if bounds is None:
+        alone = mgtt.run_adam_unbounded(
+            _generic, torch.tensor(start), torch.tensor(data), nsteps=5,
+            learning_rate=0.1, progress=False)
+        assert torch.equal(alone, got)
+    else:
+        with pytest.raises(ValueError, match="one entry per parameter"):
+            mgtt.run_adam(_generic, torch.tensor(start),
+                          torch.tensor(data), param_bounds=bounds[:1])
+
+
+def test_run_adam_scan_passes_key_and_fn_args(tmp_path):
+    import jax.numpy as jnp
+    from multigrad_tpu.optim.adam import run_adam_scan as jax_run_adam_scan
+    seen = []
+
+    def loss_and_grad(p, key, data, scale):
+        seen.append(key)
+        return (scale * (p - data) ** 2).sum(), 2.0 * scale * (p - data)
+
+    data = np.array([0.5, 2.0], np.float32)
+    start = np.array([-1.0, 1.0], np.float32)
+    want = np.asarray(jax_run_adam_scan(
+        loss_and_grad, jnp.asarray(start), nsteps=6, learning_rate=0.1,
+        fn_args=(jnp.asarray(data), 2.0)))
+    seen.clear()
+    got = mgtt.run_adam_scan(loss_and_grad, torch.tensor(start), nsteps=6,
+                             learning_rate=0.1,
+                             fn_args=(torch.tensor(data), 2.0))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert seen == [0] * 6          # jax.random.key(0)'s counterpart
+    seen.clear()
+    mgtt.run_adam_scan(loss_and_grad, torch.tensor(start), nsteps=3,
+                       randkey=5, const_randkey=True,
+                       fn_args=(torch.tensor(data), 2.0))
+    assert seen == [5] * 3
+    kw = dict(nsteps=4, learning_rate=0.1, fn_args=(torch.tensor(data), 2.0),
+              checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    first = mgtt.run_adam_scan(loss_and_grad, torch.tensor(start), **kw)
+    assert torch.equal(first, mgtt.run_adam_scan(
+        loss_and_grad, torch.tensor(start), **kw))
+    with pytest.raises(ValueError, match="different training data"):
+        mgtt.run_adam_scan(loss_and_grad, torch.tensor(start),
+                           **(kw | {"fn_args": (torch.tensor(data), 3.0)}))
+    with pytest.raises(NotImplementedError, match="log_every"):
+        mgtt.run_adam_scan(loss_and_grad, torch.tensor(start), nsteps=1,
+                           log_every=5, fn_args=(torch.tensor(data), 2.0))
+
+
+def _names(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("name", [
+    "parallel.collectives.scatter_nd", "optim.bfgs.run_bfgs",
+    "optim.bfgs.run_lbfgs_scan", "optim.adam.run_adam",
+    "optim.adam.run_adam_unbounded", "optim.adam.run_adam_scan",
+    "core.model.OnePointModel.run_adam", "core.model.OnePointModel.run_bfgs",
+    "inference.ensemble.run_multistart_lbfgs",
+    "parallel.distributed.initialize"])
+def test_public_signature_matches_the_jax_package(name):
+    import importlib
+    module, _, attr = name.rpartition(".")
+    if module.endswith("OnePointModel"):
+        module, _, cls = module.rpartition(".")
+        port = getattr(getattr(importlib.import_module(
+            f"multigrad_tpu_torch.{module}"), cls), attr)
+        ref = getattr(getattr(importlib.import_module(
+            f"multigrad_tpu.{module}"), cls), attr)
+    else:
+        port = getattr(importlib.import_module(
+            f"multigrad_tpu_torch.{module}"), attr)
+        ref = getattr(importlib.import_module(f"multigrad_tpu.{module}"),
+                      attr)
+    got, want = _names(port), _names(ref)
+    # The port's only extra: a trailing device= (and a keyword-only
+    # device before **kwargs).
+    got = [n for n in got if n != "device"]
+    assert got == want, (got, want)

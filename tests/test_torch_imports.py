@@ -61,6 +61,9 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.inference.fisher\n"
         "import multigrad_tpu_torch.inference.ensemble\n"
         "import multigrad_tpu_torch.inference.hmc\n"
+        "import multigrad_tpu_torch.optim._lbfgs\n"
+        "import multigrad_tpu_torch.parallel.distributed\n"
+        "import multigrad_tpu_torch.utils.diffdesi\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -92,7 +95,10 @@ def test_no_forbidden_import_in_sources():
             os.path.join("utils", "profiling.py"),
             os.path.join("inference", "fisher.py"),
             os.path.join("inference", "ensemble.py"),
-            os.path.join("inference", "hmc.py")} <= names
+            os.path.join("inference", "hmc.py"),
+            os.path.join("optim", "_lbfgs.py"),
+            os.path.join("parallel", "distributed.py"),
+            os.path.join("utils", "diffdesi.py")} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -107,16 +113,21 @@ def test_no_forbidden_import_in_sources():
                                    "simple_grad_descent", "ChunkPrefetcher",
                                    "StreamingOnePointModel", "run_hmc",
                                    "run_multistart_adam",
-                                   "hmc_init_from_ensemble"])
+                                   "hmc_init_from_ensemble",
+                                   "run_lbfgs_scan", "run_multistart_lbfgs",
+                                   "run_adam", "run_adam_scan",
+                                   "initialize"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from multigrad_tpu_torch import (ChunkPrefetcher, EnsembleResult,
-                                     StreamingOnePointModel,
+                                     StreamingOnePointModel, distributed,
                                      hmc_init_from_ensemble, ingraph,
-                                     run_hmc, run_multistart_adam)
+                                     run_adam, run_adam_scan, run_hmc,
+                                     run_lbfgs_scan, run_multistart_adam,
+                                     run_multistart_lbfgs)
     from multigrad_tpu_torch.models import (SMFModel, make_galaxy_mock,
                                             make_galhalo_data,
                                             make_galhalo_hist_data,
@@ -157,6 +168,19 @@ def test_default_device_is_cuda(entry):
                 EnsembleResult(best_params=np.zeros(2), best_loss=0.0,
                                params=np.zeros((1, 2)), losses=np.zeros(1),
                                inits=np.zeros((1, 2)))),
+            "run_lbfgs_scan": lambda: run_lbfgs_scan(
+                lambda p: (p.sum(), p), [0.5], maxsteps=1),
+            "run_multistart_lbfgs": lambda: run_multistart_lbfgs(
+                SMFModel(aux_data={"volume": 1.0}),
+                param_bounds=[(-4.0, 0.0), (0.02, 1.0)], n_starts=2,
+                maxsteps=1),
+            "run_adam": lambda: run_adam(lambda p, d: (p.sum(), p), [0.5],
+                                         None, nsteps=1),
+            "run_adam_scan": lambda: run_adam_scan(
+                lambda p, k: (p.sum(), p), [0.5], nsteps=1),
+            # A launcher's group on the card, with no card.
+            "initialize": lambda: distributed.initialize("127.0.0.1:1", 1,
+                                                         0),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
