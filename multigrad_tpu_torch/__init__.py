@@ -18,7 +18,11 @@ streamed, multi-start Adam ensembles with their L-BFGS polish
 (``run_lbfgs_scan``: optax's L-BFGS and zoom line search, written out)
 and multi-chain HMC, through a model's ``(K, ndim)`` batched loss and
 gradient.  ``parallel.distributed.initialize`` brings the process group
-up from a launcher's environment, each process on its card.  The hot
+up from a launcher's environment, each process on its card.
+``telemetry`` watches the fits: records every ``log_every`` steps copied
+off the card without a wait, a NaN sentinel and postmortem bundles,
+comm bytes counted, a live HTTP endpoint, alert rules and
+``torch.profiler`` fit profiles.  The hot
 op, the erf-CDF binned counts of the SMF and galaxy–halo models, runs as
 hand-written CUDA kernels on CUDA tensors and as their plain PyTorch
 versions on CPU tensors: the dense counts with a scalar or a
@@ -57,6 +61,12 @@ from .inference import (EnsembleResult, FisherResult,  # noqa: F401
                         laplace_covariance, max_k_for_budget, run_hmc,
                         run_multistart_adam, run_multistart_lbfgs,
                         sumstats_jacobian)
+from . import telemetry  # noqa: F401
+from .telemetry import (AlertEngine, CommCounter, FlightRecorder,  # noqa
+                        FlightRecorderTripped, Heartbeat, JsonlSink,
+                        LiveMetrics, LiveServer, MemorySink,
+                        MetricsLogger, ScalarTap, measure_model_comm,
+                        profiled_fit, run_record)
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
@@ -75,5 +85,9 @@ __all__ = [
     "laplace_covariance", "sumstats_jacobian", "HMCResult", "run_hmc",
     "EnsembleResult", "run_multistart_adam", "run_multistart_lbfgs",
     "hmc_init_from_ensemble", "ensemble_memory_model", "max_k_for_budget",
+    "telemetry", "MetricsLogger", "JsonlSink", "MemorySink", "ScalarTap",
+    "CommCounter", "Heartbeat", "measure_model_comm", "run_record",
+    "FlightRecorder", "FlightRecorderTripped", "profiled_fit",
+    "LiveMetrics", "LiveServer", "AlertEngine",
     "__version__",
 ]

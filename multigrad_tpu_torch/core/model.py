@@ -77,6 +77,11 @@ K_SHARDED_NOT_PORTED = (
     "sharded K; pass k_sharded=False")
 
 
+#: Guards the gradient-noise-scale ratio against a zero mean gradient (the
+#: JAX package's ``GNS_EPS``).
+GNS_EPS = 1e-20
+
+
 def _require_replicated_k(k_sharded):
     if k_sharded:
         raise NotImplementedError(K_SHARDED_NOT_PORTED)
@@ -144,7 +149,7 @@ def resolve_remat_policy(policy):
                                     context_fn=context_fn)
 
 
-def joint_loss_and_grad(models, comm, params, kwargs):
+def joint_loss_and_grad(models, comm, params, kwargs, with_local=False):
     """The two-stage chain rule over ``models`` that share ``comm`` or have
     ``comm=None``, all reading ``params``: one ``(ndim,)`` vector, or a
     ``(K, ndim)`` batch of K independent rows.
@@ -159,7 +164,8 @@ def joint_loss_and_grad(models, comm, params, kwargs):
     the ops of a solo evaluation at ``params[k]``.  Returns, a row, each
     model's ``(loss, loss_aux)`` (one list for an ``(ndim,)`` vector, a
     list of K for a batch) and the gradient summed over the models, of
-    ``params``' shape.
+    ``params``' shape; with ``with_local``, also this process's gradient
+    before its all-reduce (the gradient-noise-scale diagnostic's input).
     """
     batched = params.dim() == 2
     leaves = [row.detach().requires_grad_(True)
@@ -185,17 +191,20 @@ def joint_loss_and_grad(models, comm, params, kwargs):
                 row_cts.append(dloss_dy)
             losses.append(row_losses)
             cotangents.append(row_cts)
-        grad = None
+        grad = local_grad = None
         for members, comm_m in ((shared, comm), (local, None)):
             if members:
                 grads = torch.autograd.grad(
                     [row[i][0] for row in outs for i in members], leaves,
                     grad_outputs=[row[i] for row in cotangents
                                   for i in members])
-                g = psum(torch.stack(grads) if batched else grads[0],
-                         comm_m)
+                g_local = torch.stack(grads) if batched else grads[0]
+                g = psum(g_local, comm_m)
                 grad = g if grad is None else grad + g
-    return (losses if batched else losses[0]), grad
+                local_grad = g_local if local_grad is None \
+                    else local_grad + g_local
+    out = (losses if batched else losses[0]), grad
+    return out + (local_grad,) if with_local else out
 
 
 @dataclass
@@ -326,6 +335,30 @@ class OnePointModel:
         (loss, _), grad = self._loss_and_grad(params,
                                               self._key_kwargs(randkey))
         return loss, grad
+
+    def _fit_loss_and_grad_gns(self, params, randkey=None):
+        """``(loss, grad, diagnostics)`` for ``run_adam(diagnostics=True)``
+        (the JAX package's ``"loss_and_grad_gns"`` program,
+        ``core/model.py:468-520``): the fit's chain rule with this
+        process's gradient kept before its all-reduce, and ONE more
+        all-reduce, of its squared norm (a scalar: the O(|y| + |params|)
+        bound holds).  ``grad_noise_scale`` is the shards' relative
+        gradient variance, ``(mean_r |g_r|² - |mean_r g_r|²) / |mean_r
+        g_r|²`` (0 on one shard); ``grad_norm_shard`` is ``sqrt(mean_r
+        |g_r|²)``.  The loss and gradient are :meth:`_fit_loss_and_grad`'s
+        bit for bit."""
+        ((loss, _),), grad, g_local = joint_loss_and_grad(
+            (self,), self.comm, params, self._key_kwargs(randkey),
+            with_local=True)
+        size = self.comm.size if self.comm is not None else 1
+        mean_sq = psum(torch.sum(g_local * g_local, dim=-1),
+                       self.comm) / size
+        g_bar = grad / size
+        sq_mean = torch.sum(g_bar * g_bar, dim=-1)
+        noise = torch.clamp(mean_sq - sq_mean, min=0.0)
+        return loss, grad, {
+            "grad_noise_scale": noise / (sq_mean + GNS_EPS),
+            "grad_norm_shard": torch.sqrt(mean_sq)}
 
     def _sumstats_and_jac(self, params, kwargs):
         """This process's partial sumstats and their ``(*y, ndim)``
@@ -602,19 +635,48 @@ class OnePointModel:
         ``checkpoint_every`` steps and resumes from it; the model's
         ``aux_data`` is fingerprinted into the checkpoint.  ``comm`` is
         accepted and ignored, as in the JAX package (the model's own comm
-        reduces), and so is ``donate_carry``; the monitoring arguments
-        (``telemetry``, ``log_every``, ``flight``, ``live``, ``alerts``,
-        ``diagnostics``) are not ported yet and raise when given."""
+        reduces), and so is ``donate_carry``.
+
+        Monitoring as :func:`~multigrad_tpu_torch.optim.adam
+        .run_adam_scan`'s (``telemetry``, ``log_every``, ``flight``,
+        ``live``, ``alerts``), with, as in the JAX package, a ``comm``
+        record up front: :func:`~multigrad_tpu_torch.telemetry
+        .measure_model_comm` of one loss and gradient at ``guess`` (the
+        port counts a real evaluation: one more launch of each kernel).
+        ``diagnostics=True`` (with a tap) adds the loss EMA and the
+        gradient-noise-scale fields ``grad_noise_scale`` and
+        ``grad_norm_shard`` to each ``adam`` record (one more scalar
+        all-reduce a step).  The trajectory equals the fit without
+        monitoring bit for bit."""
         del comm, donate_carry
-        _adam._refuse_monitoring(
-            telemetry=telemetry, log_every=log_every, flight=flight,
-            live=live, alerts=alerts, diagnostics=diagnostics)
-        return _adam._run_adam_loop(
-            self._fit_loss_and_grad, self._params(guess), nsteps=nsteps,
-            param_bounds=param_bounds, learning_rate=learning_rate,
-            randkey=randkey, const_randkey=const_randkey, progress=progress,
-            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-            data=self.aux_data, comm=self.comm)
+        from ..telemetry.comm import measure_model_comm
+        from ..telemetry.live import wire_monitoring
+
+        if const_randkey and randkey is None:
+            raise ValueError("Must pass randkey if const_randkey")
+        guess = self._params(guess)
+        telemetry, log_every, owned = wire_monitoring(
+            telemetry, log_every, live, alerts)
+        try:
+            if telemetry is not None:
+                cc = measure_model_comm(self, guess, randkey=randkey)
+                telemetry.log(
+                    "comm", **cc.step_record(scope="loss_and_grad_step"))
+            diag = bool(diagnostics) and telemetry is not None \
+                and log_every > 0
+            return _adam._run_adam_loop(
+                self._fit_loss_and_grad_gns if diag
+                else self._fit_loss_and_grad, guess, nsteps=nsteps,
+                param_bounds=param_bounds, learning_rate=learning_rate,
+                randkey=randkey, const_randkey=const_randkey,
+                progress=progress, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, data=self.aux_data,
+                comm=self.comm, monitor=_adam._scan_monitor(
+                    telemetry, log_every, flight, nsteps, checkpoint_every,
+                    diagnostics=diag, fn_diag=diag))
+        finally:
+            if owned is not None:
+                owned.close()
 
     def run_bfgs(self, guess, maxsteps=100, param_bounds=None, randkey=None,
                  comm=None, progress=True):

@@ -300,22 +300,81 @@ class StreamingOnePointModel:
                        self._key_arg(randkey))
 
     # ------------------------------------------------------------------ #
+    # Telemetry: collective-traffic accounting
+    # ------------------------------------------------------------------ #
+    def measure_comm(self, params, randkey=None,
+                     use_scan: bool = False) -> dict:
+        """Collective payload of ONE streamed loss-and-grad step, as a
+        ``comm`` record.
+
+        The port counts one real step (the JAX package traces its chunk
+        programs): its two all-reduces, ``y`` after pass 1 and the
+        gradient after pass 2 (the scan path's: the same two), so
+        ``bytes_per_step`` is ``(|y| + |params|)`` floats whatever the
+        number of chunks and the catalog's size (the JAX package's
+        two-pass stream reduces every chunk).  ``comm=None`` models
+        report zero.
+        """
+        from ..telemetry.comm import CommCounter
+
+        fn = self.calc_loss_and_grad_scan if use_scan \
+            else self.calc_loss_and_grad_from_params
+        with CommCounter() as cc:
+            fn(params, randkey=randkey)
+        return cc.step_record(
+            scope="streamed_scan_step" if use_scan
+            else "streamed_loss_and_grad_step", n_chunks=self.plan().n_chunks)
+
+    # ------------------------------------------------------------------ #
     # Fit loop
     # ------------------------------------------------------------------ #
     def run_adam(self, guess, nsteps=100, param_bounds=None,
                  learning_rate=0.01, randkey=None, progress=True,
                  use_scan: bool = False, checkpoint_dir=None,
-                 checkpoint_every=None):
+                 checkpoint_every=None, telemetry=None,
+                 log_every: int = 0, heartbeat_s=None,
+                 donate_carry=None, flight=None, live=None,
+                 alerts=None, diagnostics: bool = False):
         """Adam with a streamed loss-and-grad every step (the scan path
         with ``use_scan=True``); returns the ``(nsteps+1, ndim)``
         trajectory.  ``checkpoint_dir`` makes the fit resumable (see
         :func:`~multigrad_tpu_torch.optim.adam.run_adam_streamed`; the
-        streamed catalog must stay fixed across a resume)."""
+        streamed catalog must stay fixed across a resume).
+        ``donate_carry`` is accepted and ignored.
+
+        With ``telemetry``: a ``comm`` record up front (:meth:`measure_comm`:
+        one more streamed step), ``adam`` records every ``log_every``
+        steps, a ``fit`` span, heartbeat and stall records every
+        ``heartbeat_s`` seconds, a ``fit_summary`` with the final loss and
+        the prefetcher's overlap, and a closing ``stream`` record with the
+        last step's :class:`~multigrad_tpu_torch.utils.profiling
+        .StreamStats`.  ``flight``, ``live``, ``alerts`` and
+        ``diagnostics`` as in :func:`~multigrad_tpu_torch.optim.adam
+        .run_adam_streamed`.
+        """
+        del donate_carry
+        from ..telemetry.live import wire_monitoring
+
         fn = self.calc_loss_and_grad_scan if use_scan \
             else self.calc_loss_and_grad_from_params
-        return _adam.run_adam_streamed(
-            fn, self.model._params(guess), nsteps=nsteps,
-            param_bounds=param_bounds, learning_rate=learning_rate,
-            randkey=randkey, progress=progress,
-            checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, comm=self.comm)
+        guess = self.model._params(guess)
+        telemetry, log_every, owned = wire_monitoring(
+            telemetry, log_every, live, alerts)
+        try:
+            if telemetry is not None:
+                telemetry.log("comm", **self.measure_comm(
+                    guess, randkey=randkey, use_scan=use_scan))
+            traj = _adam.run_adam_streamed(
+                fn, guess, nsteps=nsteps, param_bounds=param_bounds,
+                learning_rate=learning_rate, randkey=randkey,
+                progress=progress, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, telemetry=telemetry,
+                log_every=log_every, heartbeat_s=heartbeat_s,
+                stream_stats=lambda: self.last_stats, flight=flight,
+                diagnostics=diagnostics, comm=self.comm)
+            if telemetry is not None and self.last_stats is not None:
+                telemetry.log("stream", **self.last_stats.summary())
+            return traj
+        finally:
+            if owned is not None:
+                owned.close()

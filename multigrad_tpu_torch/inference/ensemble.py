@@ -28,7 +28,6 @@ import torch
 from ..core.model import K_SHARDED_NOT_PORTED
 from ..optim import adam as _adam
 from ..optim import bfgs as _bfgs
-from ..optim.adam import _refuse_monitoring
 from ..optim.transforms import bounds_to_arrays
 from ..utils.util import latin_hypercube_sampler, resolve_device
 
@@ -213,8 +212,9 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
                         nsteps: int = 200, learning_rate: float = 0.01,
                         inits=None, seed: int = 0, randkey=None,
                         const_randkey: bool = False, bound_fits: bool = True,
-                        telemetry=None, log_every: int = 0, live=None,
-                        alerts=None, k_sharded="auto") -> EnsembleResult:
+                        donate_carry=None, telemetry=None,
+                        log_every: int = 0, live=None, alerts=None,
+                        k_sharded="auto") -> EnsembleResult:
     """K independent Adam fits as one batched fit (parity:
     ``inference/ensemble.py:296-434`` of the JAX package).
 
@@ -235,14 +235,21 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
         Explicit starts (instead of the design; needed without bounds).
     randkey, const_randkey
         The model's randomness a step, as in ``run_adam``.
+    donate_carry
+        Accepted and ignored (a host loop has no carry to donate).
+    telemetry, log_every, live, alerts
+        The monitoring of :func:`~multigrad_tpu_torch.optim.adam
+        .run_adam_scan`: ``adam`` records every ``log_every`` steps, each
+        scalar the K-vector across starts, a ``fit_plan`` up front; and
+        the ensemble's own closing ``fit_summary`` (``final_loss`` of the
+        winning start, ``n_starts``, ``best_start``, ``k_sharded``).
     k_sharded : "auto" or bool
         ``"auto"`` and ``False`` run K replicated; ``True`` (K over a
         replica axis) is not ported yet.
-    telemetry, log_every, live, alerts
-        Not ported yet (telemetry); they raise when given.
     """
-    _refuse_monitoring(telemetry=telemetry, log_every=log_every, live=live,
-                       alerts=alerts)
+    del donate_carry
+    from ..parallel.distributed import process_index
+    from ..telemetry.live import wire_monitoring
     if inits is None:
         if param_bounds is None:
             raise ValueError(
@@ -265,19 +272,32 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
     def loss_and_grad(p, randkey=None):
         return wrapper(p, randkey, leaves)
 
-    traj = _adam._run_adam_loop(
-        loss_and_grad, inits, nsteps=nsteps,
-        param_bounds=param_bounds if bound_fits else None,
-        learning_rate=learning_rate, randkey=randkey,
-        const_randkey=const_randkey, progress=False)
-    finals = traj[-1]
-    key = _adam.init_randkey(randkey) if with_key else None
-    losses, _ = wrapper(finals, key, leaves)
-    best = int(torch.argmin(torch.where(torch.isfinite(losses), losses,
-                                        torch.inf)))
-    return EnsembleResult(best_params=finals[best],
-                          best_loss=float(losses[best]), params=finals,
-                          losses=losses, inits=inits, k_sharded=sharded)
+    telemetry, log_every, owned = wire_monitoring(
+        telemetry, log_every, live, alerts)
+    try:
+        traj = _adam._run_adam_loop(
+            loss_and_grad, inits, nsteps=nsteps,
+            param_bounds=param_bounds if bound_fits else None,
+            learning_rate=learning_rate, randkey=randkey,
+            const_randkey=const_randkey, progress=False,
+            monitor=_adam._scan_monitor(telemetry, log_every, None, nsteps,
+                                        None))
+        finals = traj[-1]
+        key = _adam.init_randkey(randkey) if with_key else None
+        losses, _ = wrapper(finals, key, leaves)
+        best = int(torch.argmin(torch.where(torch.isfinite(losses), losses,
+                                            torch.inf)))
+        best_loss = float(losses[best])
+        if telemetry is not None and process_index() == 0:
+            telemetry.log("fit_summary", steps=int(nsteps),
+                          n_starts=int(inits.shape[0]), best_start=best,
+                          final_loss=best_loss, k_sharded=sharded)
+    finally:
+        if owned is not None:
+            owned.close()
+    return EnsembleResult(best_params=finals[best], best_loss=best_loss,
+                          params=finals, losses=losses, inits=inits,
+                          k_sharded=sharded)
 
 
 def _lbfgs_polish_objective(model, with_key: bool):

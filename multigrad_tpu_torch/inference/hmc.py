@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..core.model import K_SHARDED_NOT_PORTED
-from ..optim.adam import _refuse_monitoring, init_randkey
+from ..optim.adam import init_randkey
 from .ensemble import float32_on
 
 __all__ = ["HMCResult", "run_hmc", "split_rhat", "effective_sample_size"]
@@ -113,7 +113,8 @@ def _f32(x) -> float:
 
 
 def _sample(potential, q0, noise, num_warmup, num_samples, num_leapfrog,
-            step_size0, inv_mass, target_accept, jitter):
+            step_size0, inv_mass, target_accept, jitter, tap=None,
+            sentinel=None):
     """The sampler (parity: ``_build_hmc_local`` of the JAX package's
     ``hmc.py``) on ``(C, D)`` starts ``q0``, every tensor on ``q0``'s
     device.
@@ -124,6 +125,16 @@ def _sample(potential, q0, noise, num_warmup, num_samples, num_leapfrog,
     Returns a dict of tensors: ``samples`` (C, S, D), ``potential``
     (C, S), ``accept_prob``, ``warmup_accept_prob``, ``step_size`` and
     ``divergences`` (C,).
+
+    ``tap`` (a :class:`~multigrad_tpu_torch.telemetry.ScalarTap`) emits
+    an ``hmc`` record at sampling draw ``t + 1`` when it is a multiple of
+    ``tap.log_every``: the window's mean acceptance, the cumulative
+    divergences and each chain's step size, added up on the device draw
+    by draw.  ``sentinel`` (a :class:`~multigrad_tpu_torch.telemetry
+    .NonFiniteSentinel`) watches each draw's proposal potential (NaN
+    only: an infinite one is a divergence the Metropolis test rejects),
+    at warmup draw ``t`` and sampling draw ``t + 1`` as in the JAX
+    package.  Neither reads a value inside a draw.
     """
     n_chains, ndim = q0.shape
     inv_mass = inv_mass.reshape(1, ndim)
@@ -152,6 +163,11 @@ def _sample(potential, q0, noise, num_warmup, num_samples, num_leapfrog,
         divergent = ~finite | (dh < -_DIVERGENCE_DH)
         accept = u_acc < accept_prob
         keep = accept[:, None]
+        if sentinel is not None:
+            name = "warmup_potential" if t < num_warmup else "potential"
+            sentinel.watch(t if t < num_warmup else t - num_warmup + 1, {
+                name: torch.where(torch.isinf(un), torch.zeros_like(un),
+                                  un)})
         return (torch.where(keep, qn, q), torch.where(accept, un, U),
                 torch.where(keep, gn, g), accept_prob, divergent)
 
@@ -184,11 +200,23 @@ def _sample(potential, q0, noise, num_warmup, num_samples, num_leapfrog,
     accepts = torch.empty((n_chains, num_samples), device=q.device)
     divergent = torch.empty((n_chains, num_samples), dtype=torch.bool,
                             device=q.device)
+    win_accept = torch.zeros((), device=q.device)
+    div_total = torch.zeros((), dtype=torch.int64, device=q.device)
     for t in range(num_samples):
         q, U, g, accepts[:, t], divergent[:, t] = draw(
             q, U, g, eps_sample, num_warmup + t)
         samples[:, t] = q
         potentials[:, t] = U
+        if tap is not None:
+            win_accept = win_accept + accepts[:, t].mean()
+            div_total = div_total + divergent[:, t].sum()
+            if (t + 1) % tap.log_every == 0:
+                tap.maybe_emit(t + 1, dict(
+                    accept=win_accept / tap.log_every,
+                    divergences=div_total, step_size=eps_sample))
+                win_accept = torch.zeros_like(win_accept)
+            else:
+                tap.drain()
     return {"samples": samples, "potential": potentials,
             "accept_prob": accepts.mean(dim=1),
             "warmup_accept_prob": warm_accept, "step_size": eps_sample,
@@ -234,13 +262,29 @@ def run_hmc(model, init, num_samples: int = 1000, num_warmup: int = 500,
         Metropolis, the scatter of a 1-D ``init``).
     model_randkey : int, optional
         Passed to the model's methods, the same at every draw.
-    k_sharded, telemetry, log_every, flight, live, alerts
-        Not ported yet; they raise when given.
+    telemetry, log_every
+        With ``log_every > 0``, ``hmc`` records every ``log_every``-th
+        sampling draw: the window's mean acceptance, the cumulative
+        divergences and each chain's step size, copied off the card
+        without a wait (:mod:`multigrad_tpu_torch.telemetry.taps`); a
+        ``fit_plan`` up front and a ``fit_summary`` (divergences, mean
+        acceptance) at the end.
+    flight : FlightRecorder, optional
+        Watch the chains' proposal potential for NaN, warmup included;
+        a trip dumps the postmortem bundle and the run raises
+        :class:`~multigrad_tpu_torch.telemetry.FlightRecorderTripped`
+        at its end.
+    live, alerts
+        The live endpoint and the alert rules, joined to the stream.
+    k_sharded
+        Not ported yet; ``True`` raises.
     """
     if k_sharded:
         raise NotImplementedError(K_SHARDED_NOT_PORTED)
-    _refuse_monitoring(telemetry=telemetry, log_every=log_every,
-                       flight=flight, live=live, alerts=alerts)
+    from ..parallel.distributed import process_index
+    from ..telemetry.live import wire_monitoring
+    from ..telemetry.taps import make_tap
+
     device = model.device
     init = float32_on(init, device)
     gen = torch.Generator(device=device).manual_seed(init_randkey(randkey))
@@ -275,11 +319,46 @@ def run_hmc(model, init, num_samples: int = 1000, num_warmup: int = 500,
                 torch.rand(n_chains, generator=gen, device=device),
                 torch.rand(n_chains, generator=gen, device=device))
 
-    out = _sample(potential, init, noise, int(num_warmup), int(num_samples),
-                  int(num_leapfrog),
-                  torch.tensor(float(step_size), device=device), inv_mass,
-                  float(target_accept), float(jitter))
-    return result_from(out)
+    telemetry, log_every, owned = wire_monitoring(
+        telemetry, log_every, live, alerts)
+    try:
+        if telemetry is not None:
+            telemetry.log("fit_plan", kind="hmc", nsteps=int(num_samples),
+                          num_warmup=int(num_warmup),
+                          num_chains=int(n_chains),
+                          log_every=int(log_every),
+                          k_sharded=bool(k_sharded))
+        tap = make_tap(telemetry, "hmc", log_every)
+        sentinel = flight.sentinel("hmc") if flight is not None else None
+        if sentinel is not None:
+            sentinel.arm()
+            if tap is not None:
+                tap.ride(sentinel)
+        out = _sample(potential, init, noise, int(num_warmup),
+                      int(num_samples), int(num_leapfrog),
+                      torch.tensor(float(step_size), device=device),
+                      inv_mass, float(target_accept), float(jitter),
+                      tap=tap, sentinel=sentinel)
+        result = result_from(out)
+        if tap is not None:
+            tap.drain(block=True)
+        if sentinel is not None:
+            sentinel.finish()
+        if telemetry is not None and process_index() == 0:
+            summary = {
+                "steps": int(num_samples),
+                "divergences": int(np.sum(result.divergences)),
+                "accept_prob": round(float(np.mean(result.accept_prob)),
+                                     4)}
+            if flight is not None and flight.bundle_path:
+                summary["postmortem_bundle"] = flight.bundle_path
+            telemetry.log("fit_summary", **summary)
+    finally:
+        if owned is not None:
+            owned.close()
+    if flight is not None:
+        flight.raise_if_fatal()
+    return result
 
 
 def result_from(out) -> HMCResult:

@@ -71,6 +71,16 @@ def _nvcc():
                        f"{CSRC} at first use")
 
 
+def sources_digest() -> str:
+    """The hash of every kernel source, the shared headers and the flags
+    (16 hex digits): what identifies the kernels a build runs."""
+    digest = hashlib.sha256()
+    for path in [CSRC / s for s in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>`` is (or will be) built."""
     digest = hashlib.sha256((CSRC / source).read_bytes())

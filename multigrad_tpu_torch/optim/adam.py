@@ -27,9 +27,19 @@ fingerprint of its data inside; the last write holds the trajectory the
 fit returns (bounded, with ``param_bounds``).  A call with the same
 arguments resumes from the last segment written, so a checkpointed fit
 equals the plain one bit for bit; a finished fit is a pure read.
+
+Monitoring (``telemetry``, ``log_every``, ``flight``, ``live``,
+``alerts``, ``diagnostics``, ``fn_diag``; see :class:`_AdamMonitor`):
+the ``adam`` tap, the non-finite sentinel and the loss EMA are a few
+elementwise kernels on the step's tensors and deferred copies
+(:mod:`multigrad_tpu_torch.telemetry.taps`), so a monitored step never
+waits for the card either, and its trajectory equals the plain fit's
+bit for bit.  The fit's end waits once, for the last records, before
+its ``fit_summary``.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import zlib
 from typing import Callable, Optional
@@ -42,6 +52,7 @@ from .transforms import (bounds_to_arrays, check_strictly_inside,
                          inverse_transform_array,
                          inverse_transform_diag_jacobian, transform_array)
 from ..parallel.collectives import all_gather
+from ..telemetry.spans import span
 from ..parallel.mesh import MeshComm
 from ..utils import checkpoint as _ckpt
 from ..utils.util import resolve_device, trange
@@ -71,14 +82,199 @@ def gen_new_key(randkey: int) -> int:
 
 def _wrap_bounded(loss_and_grad, low, high):
     """Loss-and-grad in unbounded space with the diagonal chain rule;
-    positional and keyword arguments after the parameters pass
-    through."""
+    positional and keyword arguments after the parameters pass through,
+    and so does a third element of the result (the diagnostics dict of
+    a ``fn_diag`` callable: scalar summaries, not parameter vectors)."""
     def unbound_loss_and_grad(uparams, *args, **kwargs):
-        loss, grad = loss_and_grad(
+        out = loss_and_grad(
             inverse_transform_array(uparams, low, high), *args, **kwargs)
-        return loss, grad * inverse_transform_diag_jacobian(uparams, low,
-                                                            high)
+        return (out[0], out[1] * inverse_transform_diag_jacobian(
+            uparams, low, high)) + tuple(out[2:])
     return unbound_loss_and_grad
+
+
+#: Decay of the loss-EMA plateau diagnostic (the JAX package's
+#: ``PLATEAU_EMA_DECAY``: half-life ~34 steps).
+PLATEAU_EMA_DECAY = 0.98
+
+
+class _AdamMonitor:
+    """What a monitored Adam fit does beside its steps.
+
+    * the ``adam`` tap: every ``log_every``-th step, ``loss``,
+      ``grad_norm``, ``param_norm`` and ``update_norm`` (unbounded
+      space; per-member lists for a ``(K, ndim)`` fit), the ``fn_diag``
+      diagnostics and, with ``diagnostics``, ``loss_ema`` and
+      ``loss_ema_slope`` (the bias-corrected EMA of the loss, updated on
+      the device every step, and its change a step since the last
+      record);
+    * the flight recorder's non-finite latch, on ``loss`` and
+      ``grad_norm`` every step, riding the tap's copies;
+    * the ``fit_plan`` record up front (``plan``, with the resume step
+      when it holds ``start``), ``checkpoint`` spans around the writes,
+      the ``fit_summary`` at the end, after the last records, and the
+      :class:`~multigrad_tpu_torch.telemetry.flight
+      .FlightRecorderTripped` after that;
+    * with ``streamed``: the ``fit`` span, a heartbeat every
+      ``heartbeat_s`` seconds, and ``steps_per_sec``, ``final_loss`` and
+      the prefetcher's overlap (``stream_stats()``) in the summary.
+
+    Nothing here reads a device value inside a step.
+    """
+
+    def __init__(self, telemetry, log_every: int, flight=None,
+                 diagnostics: bool = False, fn_diag: bool = False,
+                 plan: Optional[dict] = None, streamed: bool = False,
+                 heartbeat_s: Optional[float] = None,
+                 stream_stats: Optional[Callable] = None):
+        from ..telemetry.taps import make_tap
+
+        self.telemetry = telemetry
+        self.flight = flight
+        self.fn_diag = bool(fn_diag)
+        self.tap = make_tap(telemetry, "adam", log_every)
+        self.sentinel = flight.sentinel("adam") if flight is not None \
+            else None
+        self.diagnostics = bool(diagnostics) and self.tap is not None
+        self.plan = plan or {}
+        self.streamed = streamed
+        self.heartbeat_s = heartbeat_s
+        self.stream_stats = stream_stats
+        self.last_loss = None
+        self._heartbeat = self._meter = None
+        self._ema = self._ema_prev = None
+        self._ema_n = 0
+        if self.sentinel is not None and self.tap is not None:
+            self.tap.ride(self.sentinel)
+
+    @contextlib.contextmanager
+    def running(self, start: int):
+        """Around the steps: the plan, the latch armed, and for streamed
+        fits the ``fit`` span and the heartbeat."""
+        from ..telemetry.spans import Heartbeat
+        from ..utils.profiling import StepsPerSecond
+
+        if self.sentinel is not None:
+            self.sentinel.arm()
+        if self.telemetry is not None:
+            plan = dict(self.plan)
+            if "start" in plan:
+                plan["start"] = int(start)
+            self.telemetry.log("fit_plan", **plan)
+        self._start = start
+        if not self.streamed:
+            yield
+            return
+        self._meter = StepsPerSecond()
+        if self.telemetry is not None and self.heartbeat_s:
+            self._heartbeat = Heartbeat(self.telemetry,
+                                        interval=self.heartbeat_s)
+        with span(self.telemetry, "fit", nsteps=self.plan.get("nsteps"),
+                  start=int(start)), \
+                (self._heartbeat or contextlib.nullcontext()):
+            yield
+
+    def step(self, step: int, out, u, update):
+        """After step ``step``: ``out`` is the loss-and-grad's result at
+        the step's parameters, ``u`` the new unbounded parameters,
+        ``update`` the step's change (up to sign)."""
+        import torch
+
+        from ..telemetry.taps import batch_norm
+
+        loss, grad = out[0], out[1]
+        self.last_loss = loss
+        grad_norm = None
+        if self.sentinel is not None:
+            grad_norm = batch_norm(grad)
+            self.sentinel.watch(step, dict(loss=loss, grad_norm=grad_norm))
+        if self.diagnostics:
+            if self._ema is None:
+                self._ema = torch.zeros_like(loss)
+            self._ema = torch.add(self._ema * PLATEAU_EMA_DECAY, loss,
+                                  alpha=1.0 - PLATEAU_EMA_DECAY)
+            self._ema_n += 1
+        if self._meter is not None:
+            self._meter.tick()
+            if step == self._start:
+                # The first step paid the warm-up (StepsPerSecond.reset).
+                self._meter.reset()
+        if self._heartbeat is not None:
+            self._heartbeat.tick(step + 1)
+        if self.tap is None:
+            return
+        if step % self.tap.log_every:
+            self.tap.drain()
+            return
+        scalars = dict(
+            loss=loss,
+            grad_norm=batch_norm(grad) if grad_norm is None else grad_norm,
+            param_norm=batch_norm(u), update_norm=batch_norm(update))
+        if self.fn_diag:
+            scalars.update(out[2])
+        if self.diagnostics:
+            corrected = self._ema / (1.0 - PLATEAU_EMA_DECAY ** self._ema_n)
+            scalars["loss_ema"] = corrected
+            # The first record's slope is 0, not a NaN.
+            scalars["loss_ema_slope"] = torch.zeros_like(corrected) \
+                if self._ema_prev is None \
+                else (corrected - self._ema_prev) / self.tap.log_every
+            self._ema_prev = corrected
+        self.tap.maybe_emit(step, scalars)
+
+    def tripped(self) -> bool:
+        """Whether the latch has fired, waiting for the card (called
+        only where the fit waits anyway: before a checkpoint's write)."""
+        if self.sentinel is None:
+            return False
+        if self.tap is not None:
+            self.tap.drain(block=True)
+        self.sentinel.finish()
+        return self.flight.fatal
+
+    def finish(self, nsteps: int):
+        """The fit's end: the last records, the latch read, the
+        ``fit_summary``; raise if the recorder tripped fatally."""
+        from ..parallel.distributed import process_index
+
+        if self.tap is not None:
+            self.tap.drain(block=True)
+        if self.sentinel is not None:
+            self.sentinel.finish()
+        flight, telemetry = self.flight, self.telemetry
+        if telemetry is not None and (
+                process_index() == 0
+                or (flight is not None and flight.fatal
+                    and not self.streamed)):
+            summary = {"steps": int(nsteps)}
+            if self.streamed:
+                final = None if self.last_loss is None \
+                    else float(self.last_loss)
+                # Read after the final loss reached the host, so the
+                # rate covers the card's work, not the enqueue.
+                summary.update(steps_per_sec=round(self._meter.rate, 4),
+                               final_loss=final)
+                stats = self.stream_stats() if self.stream_stats else None
+                if stats is not None:
+                    summary["overlap_frac"] = round(
+                        stats.overlap_fraction, 4)
+                    summary["pass_overlap"] = {
+                        name: p["overlap_frac"]
+                        for name, p in stats.pass_summary().items()}
+            elif flight is not None and flight.fatal:
+                summary["final_loss"] = None
+            if flight is not None and flight.bundle_path:
+                summary["postmortem_bundle"] = flight.bundle_path
+            telemetry.log("fit_summary", **summary)
+        if flight is not None:
+            flight.raise_if_fatal()
+
+
+def _monitor(telemetry, log_every, flight=None, **kwargs):
+    """An :class:`_AdamMonitor` when there is anything to monitor."""
+    if telemetry is None and flight is None:
+        return None
+    return _AdamMonitor(telemetry, log_every, flight=flight, **kwargs)
 
 
 def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
@@ -87,7 +283,8 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
                    progress: bool = True, device=None,
                    checkpoint_dir: Optional[str] = None,
                    checkpoint_every: Optional[int] = None, data=None,
-                   comm: Optional[MeshComm] = None):
+                   comm: Optional[MeshComm] = None,
+                   monitor: Optional[_AdamMonitor] = None):
     """The host loop every Adam entry point runs: Adam on
     ``loss_and_grad(params[, randkey=key]) -> (loss, grad)``.
 
@@ -110,6 +307,10 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
     tree of tensors the loss reads, fingerprinted into the checkpoint;
     ``comm`` the processes that run the fit together: its rank 0 writes,
     and every rank reads after a barrier.
+
+    ``monitor`` (an :class:`_AdamMonitor`) sees every step; a fit whose
+    non-finite latch fired stops before the next checkpoint write, and
+    raises at its end.
     """
     if not isinstance(guess, torch.Tensor):
         guess = torch.as_tensor(np.asarray(guess, np.float32),
@@ -120,7 +321,7 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
     bounded = param_bounds is not None
     key = None if randkey is None else init_randkey(randkey)
 
-    state, save = None, None
+    state, save, every = None, None, None
     if checkpoint_dir is not None:
         every = max(1, nsteps // 10) if checkpoint_every is None \
             else int(checkpoint_every)
@@ -137,10 +338,17 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
                         float(const_randkey)], np.float64)])
         config_key = np.asarray([-1 if key is None else key], np.int64)
         state, traj, save = _resume(checkpoint_dir, params, nsteps, config,
-                                    config_key, data, comm, every)
+                                    config_key, data, comm, every, monitor)
+        if monitor is not None and monitor.flight is not None:
+            monitor.flight.attach(last_checkpoint=os.path.join(
+                checkpoint_dir, "adam_state.npz"))
         if state is not None and state["step"] == nsteps:
             # A finished fit: the trajectory it returned, stored as it
             # was.
+            if monitor is not None:
+                with monitor.running(nsteps):
+                    pass
+                monitor.finish(nsteps)
             return traj
 
     fn = loss_and_grad
@@ -158,44 +366,56 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
 
     u, mu, nu, key = state["u"], state["mu"], state["nu"], state["key"]
     start = state["step"]
-    for i in trange(nsteps - start, "Adam Gradient Descent Progress",
-                    progress):
-        step = start + i
-        kwargs = {}
-        if key is not None:
-            if const_randkey:
-                kwargs["randkey"] = key
-            else:
-                key, kwargs["randkey"] = split_key(key)
-        _, grad = fn(u, **kwargs)
-        mu = (1 - B1) * grad + B1 * mu
-        nu = (1 - B2) * grad ** 2 + B2 * nu
-        count = torch.tensor(step + 1, dtype=torch.float32)
-        mu_hat = mu / float(1 - torch.tensor(B1) ** count)
-        nu_hat = nu / float(1 - torch.tensor(B2) ** count)
-        u = u - learning_rate * (mu_hat / (torch.sqrt(nu_hat) + EPS))
-        traj.append(u)
-        if save is not None and step + 1 < nsteps:
-            save(step + 1, u, mu, nu, key, traj)
+    if monitor is not None and monitor.flight is not None:
+        monitor.flight.watch_program("adam_loss_and_grad", loss_and_grad,
+                                     (params,))
+    stopped = False
+    with (monitor.running(start) if monitor is not None
+          else contextlib.nullcontext()):
+        for i in trange(nsteps - start, "Adam Gradient Descent Progress",
+                        progress=progress):
+            step = start + i
+            kwargs = {}
+            if key is not None:
+                if const_randkey:
+                    kwargs["randkey"] = key
+                else:
+                    key, kwargs["randkey"] = split_key(key)
+            out = fn(u, **kwargs)
+            grad = out[1]
+            mu = (1 - B1) * grad + B1 * mu
+            nu = (1 - B2) * grad ** 2 + B2 * nu
+            count = torch.tensor(step + 1, dtype=torch.float32)
+            mu_hat = mu / float(1 - torch.tensor(B1) ** count)
+            nu_hat = nu / float(1 - torch.tensor(B2) ** count)
+            update = learning_rate * (mu_hat / (torch.sqrt(nu_hat) + EPS))
+            u = u - update
+            traj.append(u)
+            if monitor is not None:
+                monitor.step(step, out, u, update)
+            if save is not None and step + 1 < nsteps:
+                if monitor is not None and (step + 1) % every == 0 \
+                        and monitor.tripped():
+                    # The latch fired: keep the last good restart state
+                    # (the one the postmortem bundle points at).
+                    stopped = True
+                    break
+                save(step + 1, u, mu, nu, key, traj)
     traj = torch.stack(traj)
     if bounded:
         traj = inverse_transform_array(traj, low, high)
-    if save is not None:
+    if save is not None and not stopped:
         save(nsteps, u, mu, nu, key, traj)
+    if monitor is not None:
+        monitor.finish(nsteps)
     return traj
 
 
-#: The monitoring arguments, which belong to telemetry (not ported yet).
-MONITORING_NOT_PORTED = (
-    "{} is not ported yet (telemetry: ROADMAP.md Queue 1 item 7)")
-
-
-def _refuse_monitoring(**given):
-    """Raise ``NotImplementedError`` for a monitoring argument given a
-    value other than ``None``, 0 or ``False``."""
-    for name, value in given.items():
-        if value not in (None, 0):
-            raise NotImplementedError(MONITORING_NOT_PORTED.format(name))
+#: What ``carry_sharding`` raises: the port has no replica axis yet.
+CARRY_SHARDING_NOT_PORTED = (
+    "carry_sharding (the Adam carry of a (K, ndim) fit partitioned over "
+    "a replica axis) is not ported yet: ROADMAP.md Queue 1 item 6, "
+    "sharded K")
 
 
 def run_adam_unbounded(logloss_and_grad_fn, params, data, nsteps=100,
@@ -259,16 +479,30 @@ def run_adam_scan(loss_and_grad: Callable, params, nsteps: int = 100,
     params only, as in the JAX package) the fit writes its restart state
     every ``checkpoint_every`` steps and resumes from it; ``fn_args`` is
     fingerprinted into it.  ``donate_carry`` is accepted and has no
-    effect (a host loop has no carry to donate).  The monitoring
-    arguments (``telemetry``, ``log_every``, ``flight``, ``live``,
-    ``alerts``, ``diagnostics``, ``fn_diag``) and ``carry_sharding``
-    (sharded K) are not ported yet and raise when given.
+    effect (a host loop has no carry to donate).
+
+    Monitoring, as in the JAX package: with ``telemetry`` (a
+    :class:`~multigrad_tpu_torch.telemetry.MetricsLogger`) and
+    ``log_every > 0``, ``adam`` records (loss, |grad|, |params|,
+    |update| in unbounded space) every ``log_every``-th step, numbered
+    globally across checkpoint segments and resumes, a ``fit_plan`` up
+    front, ``checkpoint`` spans and a ``fit_summary``; ``flight`` (a
+    :class:`~multigrad_tpu_torch.telemetry.FlightRecorder`) arms the
+    non-finite latch on loss and |grad| (a trip dumps the postmortem
+    bundle, and the fit raises :class:`~multigrad_tpu_torch.telemetry
+    .FlightRecorderTripped` at its end); ``live`` and ``alerts`` join the
+    stream (:func:`~multigrad_tpu_torch.telemetry.wire_monitoring`);
+    ``diagnostics`` adds ``loss_ema`` and ``loss_ema_slope``; with
+    ``fn_diag`` the callable returns ``(loss, grad, diagnostics dict)``
+    and the dict's scalars join each record.  See :class:`_AdamMonitor`:
+    no step waits for the card.  ``carry_sharding`` (sharded K) is not
+    ported yet and raises.
     """
     del donate_carry
-    _refuse_monitoring(telemetry=telemetry, log_every=log_every,
-                       flight=flight, live=live, alerts=alerts,
-                       diagnostics=diagnostics, fn_diag=fn_diag,
-                       carry_sharding=carry_sharding)
+    if carry_sharding is not None:
+        raise NotImplementedError(CARRY_SHARDING_NOT_PORTED)
+    from ..telemetry.live import wire_monitoring
+
     fn_args = tuple(fn_args)
     ndim = params.dim() if isinstance(params, torch.Tensor) \
         else np.ndim(params)
@@ -280,12 +514,31 @@ def run_adam_scan(loss_and_grad: Callable, params, nsteps: int = 100,
     def fn(p, randkey=0):
         return loss_and_grad(p, randkey, *fn_args)
 
-    return _run_adam_loop(
-        fn, params, nsteps=nsteps, param_bounds=param_bounds,
-        learning_rate=learning_rate, randkey=randkey,
-        const_randkey=const_randkey, progress=progress, device=device,
-        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-        data=fn_args)
+    telemetry, log_every, owned = wire_monitoring(
+        telemetry, log_every, live, alerts)
+    try:
+        return _run_adam_loop(
+            fn, params, nsteps=nsteps, param_bounds=param_bounds,
+            learning_rate=learning_rate, randkey=randkey,
+            const_randkey=const_randkey, progress=progress, device=device,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, data=fn_args,
+            monitor=_scan_monitor(telemetry, log_every, flight, nsteps,
+                                  checkpoint_every, diagnostics, fn_diag))
+    finally:
+        if owned is not None:
+            owned.close()
+
+
+def _scan_monitor(telemetry, log_every, flight, nsteps, checkpoint_every,
+                  diagnostics=False, fn_diag=False):
+    """The monitor of a resident fit (``run_adam_scan``'s records)."""
+    return _monitor(
+        telemetry, log_every, flight=flight, diagnostics=diagnostics,
+        fn_diag=fn_diag, plan=dict(
+            kind="adam_scan", nsteps=int(nsteps), log_every=int(log_every),
+            checkpoint_every=(int(checkpoint_every) if checkpoint_every
+                              else None)))
 
 
 def run_adam_streamed(loss_and_grad: Callable, params, nsteps: int = 100,
@@ -294,6 +547,12 @@ def run_adam_streamed(loss_and_grad: Callable, params, nsteps: int = 100,
                       progress: bool = True,
                       checkpoint_dir: Optional[str] = None,
                       checkpoint_every: Optional[int] = None,
+                      telemetry=None, log_every: int = 0,
+                      heartbeat_s: Optional[float] = None,
+                      donate_carry: Optional[bool] = None,
+                      stream_stats: Optional[Callable] = None,
+                      flight=None, live=None, alerts=None,
+                      diagnostics: bool = False, *,
                       comm: Optional[MeshComm] = None):
     """Adam over a *streamed* loss-and-grad callable (the fit loop of
     :class:`~multigrad_tpu_torch.data.streaming.StreamingOnePointModel`;
@@ -307,15 +566,42 @@ def run_adam_streamed(loss_and_grad: Callable, params, nsteps: int = 100,
     every ``checkpoint_every`` steps and a call with the same arguments
     resumes from it.  The streamed catalog is not fingerprinted into the
     checkpoint (the callable closes over its sources): keep it fixed
-    across a resume.  ``comm``: the processes that run the fit together
-    (its rank 0 writes the checkpoint).
+    across a resume.  ``donate_carry`` is accepted and has no effect.
+
+    Monitoring as :func:`run_adam_scan`'s, and as the JAX package's
+    streamed fit: a ``fit_plan`` with the resume ``start``, a ``fit``
+    span, ``checkpoint`` spans, a heartbeat thread every ``heartbeat_s``
+    seconds (liveness and stall records), and a ``fit_summary`` with
+    ``steps_per_sec`` (the first step left out), ``final_loss`` (the
+    last evaluation's) and, from ``stream_stats()`` (the current
+    :class:`~multigrad_tpu_torch.utils.profiling.StreamStats` or None),
+    the prefetcher's ``overlap_frac`` and per-pass overlaps.
+
+    ``comm`` (keyword-only, the port's own): the processes that run the
+    fit together; its rank 0 writes the checkpoint, and every rank
+    reads it after a barrier.
     """
-    return _run_adam_loop(
-        loss_and_grad, params, nsteps=nsteps, param_bounds=param_bounds,
-        learning_rate=learning_rate, randkey=randkey,
-        const_randkey=const_randkey, progress=progress,
-        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-        data=None, comm=comm)
+    del donate_carry
+    from ..telemetry.live import wire_monitoring
+
+    telemetry, log_every, owned = wire_monitoring(
+        telemetry, log_every, live, alerts)
+    monitor = _monitor(
+        telemetry, log_every, flight=flight, diagnostics=diagnostics,
+        plan=dict(kind="adam_streamed", nsteps=int(nsteps), start=None,
+                  log_every=int(log_every)),
+        streamed=True, heartbeat_s=heartbeat_s, stream_stats=stream_stats)
+    try:
+        return _run_adam_loop(
+            loss_and_grad, params, nsteps=nsteps, param_bounds=param_bounds,
+            learning_rate=learning_rate, randkey=randkey,
+            const_randkey=const_randkey, progress=progress,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, data=None, comm=comm,
+            monitor=monitor)
+    finally:
+        if owned is not None:
+            owned.close()
 
 
 #: Bytes of a leaf copied to the host at a time for its checksum.
@@ -360,13 +646,14 @@ def _barrier(comm: Optional[MeshComm]):
 
 
 def _resume(checkpoint_dir, params, nsteps, config, config_key, data, comm,
-            every):
+            every, monitor=None):
     """The restart state of ``checkpoint_dir`` when it holds one for this
     fit (raise when it holds another's), else ``None``; the trajectory so
     far (a list of unbounded rows, or the returned tensor of a finished
     fit); and the ``save(step, u, mu, nu, key, rows)`` callback of the
     segment ends, whose ``rows`` are the list of unbounded rows so far or,
-    at the last step, the trajectory tensor the fit returns."""
+    at the last step, the trajectory tensor the fit returns; each write
+    inside ``monitor``'s ``checkpoint`` span."""
     path = os.path.join(checkpoint_dir, "adam_state")
     config_args = np.asarray([_args_fingerprint(data, comm)], np.uint32)
     like = dict(step=0, u=params, mu=params, nu=params, key=0,
@@ -414,11 +701,13 @@ def _resume(checkpoint_dir, params, nsteps, config, config_key, data, comm,
                 rows = torch.stack(rows)
             full = rows.new_zeros((nsteps + 1,) + tuple(rows.shape[1:]))
             full[:rows.shape[0]] = rows
-            _ckpt.save(path, dict(
-                step=np.int64(step), u=u, mu=mu, nu=nu,
-                key=np.int64(-1 if key is None else key), traj=full,
-                config=config, config_key=config_key,
-                config_args=config_args))
+            with span(monitor.telemetry if monitor is not None else None,
+                      "checkpoint", step=int(step)):
+                _ckpt.save(path, dict(
+                    step=np.int64(step), u=u, mu=mu, nu=nu,
+                    key=np.int64(-1 if key is None else key), traj=full,
+                    config=config, config_key=config_key,
+                    config_args=config_args))
         if step == nsteps:
             _barrier(comm)
 

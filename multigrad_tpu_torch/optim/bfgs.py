@@ -43,7 +43,8 @@ def run_bfgs(loss_and_grad_fn, params, maxsteps=100, param_bounds=None,
     kwargs = {}
     if randkey is not None:
         kwargs["randkey"] = init_randkey(randkey)
-    pbar = trange(maxsteps, "BFGS Gradient Descent Progress", progress)
+    pbar = trange(maxsteps, "BFGS Gradient Descent Progress",
+                  progress=progress)
 
     # Outside the model's domain the loss can go NaN/inf.  scipy's line
     # search must see a finite, moderate penalty there (non-finite

@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 from .mesh import MeshComm
+from ..telemetry.comm import record_collective
 from ..utils.util import pad_to_multiple
 
 
@@ -101,6 +102,7 @@ def all_gather(value, comm: Optional[MeshComm] = None, axis: int = 0):
     if comm is None or comm.size == 1:
         return tensor
     tensor = _on_comm_device(tensor, comm).contiguous()
+    record_collective("all_gather", tensor)
     if dist.get_backend(comm.group) == "nccl":
         stacked = torch.empty((comm.size,) + tuple(tensor.shape),
                               dtype=tensor.dtype, device=tensor.device)
@@ -163,6 +165,7 @@ def _ring_pass(tensor, comm: MeshComm, shift: int):
         return dist.get_global_rank(comm.group, r)
 
     out = torch.empty_like(tensor)
+    record_collective("ppermute", tensor)
     ops = [dist.P2POp(dist.isend, tensor.contiguous(), peer(rank + shift),
                       comm.group),
            dist.P2POp(dist.irecv, out, peer(rank - shift), comm.group)]

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..telemetry.comm import record_collective
+
 
 class MeshComm:
     """This process's view of a process group.
@@ -109,6 +111,7 @@ class MeshComm:
             return value
         self._require_member("sum")
         out = value.detach().clone()
+        record_collective("psum", out)
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
 

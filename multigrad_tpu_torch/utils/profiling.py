@@ -1,16 +1,114 @@
-"""Counters of the streaming-data pipeline (port of
-:mod:`multigrad_tpu.utils.profiling`: ``StreamStats`` only).
+"""Profiling and timing helpers (port of
+:mod:`multigrad_tpu.utils.profiling`).
 
-``Timer``, ``trace`` and ``StepsPerSecond`` belong to the telemetry
-layer, which is not ported yet.
+The reference's only instrumentation is wall-clock timing with a
+warm-up run (SURVEY §5.1).  This module keeps that warm-up-then-time
+shape (:class:`Timer`, each call ended by a synchronize of the card),
+adds ``torch.profiler`` capture (:func:`trace`: a Chrome trace that
+Perfetto and TensorBoard read), the steps/s meter of the host loops
+(:class:`StepsPerSecond`) and the streaming pipeline's counters
+(:class:`StreamStats`).
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
+import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
-__all__ = ["StreamStats"]
+__all__ = ["Timer", "trace", "StreamStats", "StepsPerSecond"]
+
+
+def _fence(result):
+    """Wait for the card when ``result`` holds a CUDA tensor: PyTorch
+    returns before the device finishes, so a host clock without this
+    measures the enqueue."""
+    import torch
+
+    from .util import tree_leaves
+
+    for leaf in tree_leaves(result):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            torch.cuda.synchronize(leaf.device)
+            return
+
+
+class Timer:
+    """Warm-up-then-time harness (the reference benchmark's shape).
+
+    Each timed call is individually fenced (a synchronize of the card
+    when the result holds CUDA tensors) so per-call latencies are real
+    measurements, not enqueue times — which makes the tail visible: the
+    returned dict carries ``p50`` and ``p95`` per-call seconds alongside
+    the aggregate ``calls_per_sec``.  A p95 far above p50 is the
+    signature of host interference that a bare mean averages away.
+    """
+
+    def __init__(self, fn: Callable, warmup: int = 1):
+        self.fn = fn
+        self.warmup = warmup
+
+    def __call__(self, n_calls: int, *args, **kwargs):
+        import numpy as np
+
+        for _ in range(self.warmup):
+            _fence(self.fn(*args, **kwargs))
+        latencies = []
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            t1 = time.perf_counter()
+            _fence(self.fn(*args, **kwargs))
+            latencies.append(time.perf_counter() - t1)
+        elapsed = time.perf_counter() - t0
+        return dict(calls_per_sec=n_calls / elapsed, elapsed=elapsed,
+                    n_calls=n_calls,
+                    p50=float(np.percentile(latencies, 50)),
+                    p95=float(np.percentile(latencies, 95)),
+                    latencies=latencies)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None, perfetto: bool = False):
+    """Capture a ``torch.profiler`` trace around a block (the CPU's ops,
+    and the card's kernels and copies where there is a card); yields the
+    trace directory.
+
+    At exit the trace is written into it as a Chrome trace,
+    ``<host>.<pid>.pt.trace.json`` (gzipped, ``.pt.trace.json.gz``, with
+    ``perfetto=True``), which Perfetto, ``chrome://tracing`` and
+    TensorBoard's profiler plugin read, and which
+    :func:`multigrad_tpu_torch.telemetry.profile.summarize_device_trace`
+    aggregates.
+
+    ``log_dir=None`` (the default) captures into a fresh private
+    ``mkdtemp`` child, so two captures never clobber each other — read
+    the actual directory off the yielded value.
+    """
+    import gzip
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if log_dir is None:
+        log_dir = tempfile.mkdtemp(prefix="multigrad_tpu_torch_trace_")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    path = os.path.join(
+        log_dir, f"{socket.gethostname()}.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if perfetto:
+        with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(path)
 
 
 @dataclass
@@ -110,3 +208,43 @@ class StreamStats:
                     fill_s=round(self.fill_s, 4),
                     max_live_buffers=int(self.max_live_buffers),
                     passes=self.pass_summary())
+
+
+class StepsPerSecond:
+    """Streaming steps/sec meter for host-side optimizer loops.
+
+    The clock starts at the first :meth:`tick`, so call :meth:`reset`
+    right after the first step completes — otherwise ``rate`` averages
+    the one-time warm-up cost into steady state and under-reports
+    throughput for short fits (``optim/adam.run_adam_streamed`` does
+    exactly this).  The port's host loops run ahead of the card, so read
+    ``rate`` after a wait for the card (the streamed fit reads it after
+    its final loss reaches the host).
+    """
+
+    def __init__(self):
+        self.t0: Optional[float] = None
+        self.steps = 0
+
+    def tick(self, n: int = 1):
+        if self.t0 is None:
+            self.t0 = time.perf_counter()
+        self.steps += n
+
+    def reset(self):
+        """Zero the step count and restart the clock NOW.
+
+        Call at the end of a warm-up step: every subsequently ticked
+        step is then measured over its full duration (a tick marks a
+        step's END, so a clock started *at* the first tick would miss
+        that step's duration and overstate the rate by
+        ``steps/(steps-1)`` — degenerately so for short fits).
+        """
+        self.t0 = time.perf_counter()
+        self.steps = 0
+
+    @property
+    def rate(self) -> float:
+        if self.t0 is None or self.steps == 0:
+            return 0.0
+        return self.steps / (time.perf_counter() - self.t0)

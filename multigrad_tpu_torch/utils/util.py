@@ -33,12 +33,14 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def trange(n, desc=None, progress=True):
-    """``tqdm.trange`` when progress is wanted, tqdm is installed and this
-    is process 0 (or ``torch.distributed`` is not initialised): the
-    reference shows its bars on process 0 only."""
+def trange(n, desc=None, leave=True, *, progress=True):
+    """``tqdm.trange(n, desc=desc, leave=leave)`` when progress is wanted,
+    tqdm is installed and this is process 0 (or ``torch.distributed`` is
+    not initialised): the reference shows its bars on process 0 only.
+    Else ``range(n)``.  The JAX package's signature, plus the keyword
+    ``progress``."""
     if progress and tqdm is not None and _is_process_zero():
-        return tqdm.trange(n, desc=desc, leave=True)
+        return tqdm.trange(n, desc=desc, leave=leave)
     return range(n)
 
 
@@ -101,7 +103,21 @@ def tree_leaves(tree) -> list:
     return leaves
 
 
-def _value_and_grad(loss_func, has_aux):
+def _value_and_grad(loss_func, has_aux, argnums=0, holomorphic=False,
+                    allow_int=False, reduce_axes=()):
+    """``(loss[, aux]), grad`` of ``loss_func(params)`` by autograd, with
+    ``jax.value_and_grad``'s options as the JAX package passes them: the
+    loss takes one argument, so ``argnums`` must be 0; ``holomorphic``
+    needs complex parameters, which the port's fits do not take;
+    ``allow_int`` and ``reduce_axes`` change nothing for float
+    parameters on one process."""
+    del allow_int, reduce_axes
+    if argnums != 0:
+        raise ValueError(f"argnums={argnums!r}: the loss takes one "
+                         "argument, the parameters (argnums=0)")
+    if holomorphic:
+        raise TypeError("holomorphic=True requires complex parameters")
+
     def fn(params):
         p = params.detach().requires_grad_(True)
         with torch.enable_grad():
@@ -116,13 +132,18 @@ def _value_and_grad(loss_func, has_aux):
 
 def simple_grad_descent(loss_func, guess, nsteps, learning_rate,
                         loss_and_grad_func=None, grad_loss_func=None,
-                        has_aux=False, progress=True):
+                        has_aux=False, progress=True, **kwargs):
     """Fixed-learning-rate gradient descent, host loop (parity:
     ``util.py:80-134`` of the reference).
 
     Gradients come from ``loss_and_grad_func``, else from
-    ``grad_loss_func``, else from autograd of ``loss_func``.  Returns the
-    loss, params and aux trajectories of the ``nsteps`` evaluated points.
+    ``grad_loss_func``, else from autograd of ``loss_func``.  ``kwargs``
+    are what the JAX package and the reference pass to
+    ``jax.value_and_grad`` on that last path (``argnums``,
+    ``holomorphic``, ``allow_int``, ``reduce_axes``; another name raises
+    ``TypeError`` there, as in the JAX package; the other paths ignore
+    them, as it does).  Returns the loss, params and aux trajectories of
+    the ``nsteps`` evaluated points.
     """
     if loss_and_grad_func is not None:
         fn = loss_and_grad_func
@@ -130,11 +151,12 @@ def simple_grad_descent(loss_func, guess, nsteps, learning_rate,
         def fn(params):
             return loss_func(params), grad_loss_func(params)
     else:
-        fn = _value_and_grad(loss_func, has_aux)
+        fn = _value_and_grad(loss_func, has_aux, **kwargs)
 
     params = torch.as_tensor(guess)
     losses, trajectory, aux_trail = [], [], []
-    for _ in trange(nsteps, "Simple Gradient Descent Progress", progress):
+    for _ in trange(nsteps, "Simple Gradient Descent Progress",
+                    progress=progress):
         if has_aux:
             (loss, aux), grad = fn(params)
         else:

@@ -34,6 +34,8 @@ from multigrad_tpu_torch.inference import (EnsembleResult,
                                            run_multistart_adam,
                                            run_multistart_lbfgs)
 from multigrad_tpu_torch.inference import ensemble as ens_mod
+from multigrad_tpu_torch.telemetry import (AlertEngine, LiveSink,
+                                           MemorySink, MetricsLogger)
 from multigrad_tpu_torch.models import (SMFChi2Model, aux_from_numpy,
                                         make_joint_smf_wprp, make_smf_data)
 from test_torch_fisher import GaussianLinearModel, _jax_gaussian_linear
@@ -172,11 +174,14 @@ def test_ensemble_input_errors(smf):
     with pytest.raises(NotImplementedError, match="k_sharded"):
         run_multistart_adam(smf, inits=[[-2.0, 0.2]], nsteps=2,
                             k_sharded=True)
-    for name, value in (("telemetry", object()), ("log_every", 5),
-                        ("live", object()), ("alerts", object())):
-        with pytest.raises(NotImplementedError, match=name):
-            run_multistart_adam(smf, inits=[[-2.0, 0.2]], nsteps=2,
-                                **{name: value})
+    # The monitoring arguments work: each gives the fit without them.
+    plain = run_multistart_adam(smf, inits=[[-2.0, 0.2]], nsteps=2)
+    for name, value in (("telemetry", MetricsLogger(MemorySink())),
+                        ("log_every", 5), ("live", LiveSink()),
+                        ("alerts", AlertEngine())):
+        ens = run_multistart_adam(smf, inits=[[-2.0, 0.2]], nsteps=2,
+                                  **{name: value})
+        assert torch.equal(ens.params, plain.params), name
 
 
 def test_sample_inits_match_jax():

@@ -327,13 +327,8 @@ def test_chain_init_shapes_and_errors(models, prob):
                 inv_mass=np.array([1.0, 0.0, 1.0]))
 
 
-@pytest.mark.parametrize("kwargs", [dict(k_sharded=True),
-                                    dict(telemetry=object()),
-                                    dict(log_every=5), dict(flight=object()),
-                                    dict(live=object()),
-                                    dict(alerts=object())],
-                         ids=["k_sharded", "telemetry", "log_every",
-                              "flight", "live", "alerts"])
+@pytest.mark.parametrize("kwargs", [dict(k_sharded=True)],
+                         ids=["k_sharded"])
 def test_unported_options_raise(models, prob, kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):
         run_hmc(models[0], prob["mle"], num_samples=2, num_warmup=0,

@@ -24,6 +24,7 @@ def _python_files():
     yield os.path.join(REPO_ROOT, "tools", "pair_kernels_ab.py")
     yield os.path.join(REPO_ROOT, "tools", "streamed_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "posterior_smf.py")
+    yield os.path.join(REPO_ROOT, "tools", "telemetry_smf.py")
 
 
 def _imported_roots(path):
@@ -64,6 +65,8 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.optim._lbfgs\n"
         "import multigrad_tpu_torch.parallel.distributed\n"
         "import multigrad_tpu_torch.utils.diffdesi\n"
+        "import multigrad_tpu_torch.telemetry\n"
+        "import multigrad_tpu_torch.telemetry.report\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -98,7 +101,10 @@ def test_no_forbidden_import_in_sources():
             os.path.join("inference", "hmc.py"),
             os.path.join("optim", "_lbfgs.py"),
             os.path.join("parallel", "distributed.py"),
-            os.path.join("utils", "diffdesi.py")} <= names
+            os.path.join("utils", "diffdesi.py"),
+            *(os.path.join("telemetry", f"{m}.py") for m in (
+                "__init__", "metrics", "spans", "taps", "comm", "flight",
+                "live", "alerts", "report", "profile"))} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -116,7 +122,8 @@ def test_no_forbidden_import_in_sources():
                                    "hmc_init_from_ensemble",
                                    "run_lbfgs_scan", "run_multistart_lbfgs",
                                    "run_adam", "run_adam_scan",
-                                   "initialize"])
+                                   "initialize", "profiled_fit",
+                                   "measure_model_comm"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
@@ -127,7 +134,7 @@ def test_default_device_is_cuda(entry):
                                      hmc_init_from_ensemble, ingraph,
                                      run_adam, run_adam_scan, run_hmc,
                                      run_lbfgs_scan, run_multistart_adam,
-                                     run_multistart_lbfgs)
+                                     run_multistart_lbfgs, telemetry)
     from multigrad_tpu_torch.models import (SMFModel, make_galaxy_mock,
                                             make_galhalo_data,
                                             make_galhalo_hist_data,
@@ -181,6 +188,10 @@ def test_default_device_is_cuda(entry):
             # A launcher's group on the card, with no card.
             "initialize": lambda: distributed.initialize("127.0.0.1:1", 1,
                                                          0),
+            "profiled_fit": lambda: telemetry.profiled_fit().__enter__(),
+            # A model that holds no tensor: the evaluation goes to the card.
+            "measure_model_comm": lambda: telemetry.measure_model_comm(
+                SMFModel(aux_data={"volume": 1.0}), [-2.0, 0.2]),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -1,5 +1,6 @@
 """``tools/hist_card_vs_cpu.py``'s references, on the CPU, and
-``tools/streamed_smf.py`` and ``tools/posterior_smf.py`` refusing to run
+``tools/streamed_smf.py``, ``tools/posterior_smf.py`` and
+``tools/telemetry_smf.py`` refusing to run
 without a card.
 
 ``chip_smoke.py``'s phase 9 and ``tests/test_torch_cuda.py`` hold the
@@ -62,6 +63,18 @@ def test_posterior_smf_needs_a_card():
         pytest.skip("a CUDA device is present")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "tools/posterior_smf.py"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=120, env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode != 0 and not out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+def test_telemetry_smf_needs_a_card():
+    # As tools/streamed_smf.py: no card, no result.
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "tools/telemetry_smf.py"],
                          cwd=root, capture_output=True, text=True,
                          timeout=120, env=dict(os.environ, PYTHONPATH=root))
     assert out.returncode != 0 and not out.stdout

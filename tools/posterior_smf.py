@@ -67,6 +67,7 @@ def main():
     lbfgs_card = cs.lbfgs_card_phase()
     hmc = cs.hmc_phase(reset_launches, read_launches, wrappers, model,
                        ensemble.pop("ens"))
+    del hmc["start"]
     del model
     torch.cuda.empty_cache()
     # Phase 5's fit without a comm, the reference of the NCCL run.
@@ -86,7 +87,9 @@ def main():
     print(json.dumps({"card": smi, "batched": batched, "ensemble": ensemble,
                       "polish": polish, "lbfgs_card": lbfgs_card,
                       "hmc": hmc, "nccl": nccl,
-                      "profiler_windows": cs.WINDOWS}))
+                      "profiler_windows": {
+                          "windows": cs.windows().windows,
+                          "retries": cs.windows().retries}}))
     return 0
 
 
