@@ -150,15 +150,35 @@ order:
     with a record every 25 (the last record's divergences the run's), and
     the streamed fit at 1e8 in chunks of 2^22, 5 steps with a record every
     2 (one comm and one stream record, at most 2 live buffers, the ``fit``
-    span ok, a finite final loss), bit-equal to the unmonitored one.
+    span ok, a finite final loss), bit-equal to the unmonitored one;
+23. serving (``multigrad_tpu_torch.serve``) over an SMF model at 1e8
+    halos: ``FitScheduler(buckets=(1, 4, 16))``'s warmup of a 200-step
+    config (a step and a finalize a bucket, 42 launches of each kernel,
+    no ``nvcc``), a burst of 20 requests with ``bench_serve``'s guesses
+    (2 dispatches, buckets 16 and 4, no padding, 20 x 201 launches of
+    each kernel, requests 0 and 19 against solo fits at rtol 1e-6),
+    fits/hour, hop medians, peak memory and the memory truth; ``/metrics``
+    against the scheduler's counters; a NaN row in bucket 4 (its mates
+    bit-identical to a clean batch, a bundle whose resource ring has
+    device fields, one retry in a fresh bucket); profiler windows of a
+    bucket-4 dispatch of 5 steps and of ``run_adam_scan`` on the same
+    guesses (the same synchronizing calls and launches);
+    ``bench_serve`` at 1e5 halos, 64 requests, buckets (1, 4, 16) against
+    (1,), a warm and a timed burst each; the worker process
+    (``python -m multigrad_tpu_torch.serve.worker``) at 1e5 halos with
+    this run's kernel libraries: its handshake, two submits over the
+    wire (the first equal bit for bit to this process's bucket-1 fit), no
+    ``nvcc``, and SIGTERM answered with ``draining`` and ``drained``,
+    exit 0.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
 device time per launch in its path's profiler window;
 ``launches_batched``, ``launches_ensemble``, ``launches_polish``,
-``launches_hmc``, ``launches_nccl`` and ``launches_telemetry`` are its
-launches in phase 18, the ensemble and the polish of phase 19, phases 20
-and 21, and phase 22's monitored fit), the
+``launches_hmc``, ``launches_nccl``, ``launches_telemetry`` and
+``launches_serve`` are its launches in phase 18, the ensemble and the
+polish of phase 19, phases 20 and 21, phase 22's monitored fit and phase
+23's burst), the
 ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -283,6 +303,20 @@ STREAM_TAP_EVERY = 2
 #: must not add; the fit's end waits on events (cudaEventSynchronize).
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaMemcpy")
+# Phase 23, serving: FitScheduler over phase 5's model at 1e8 halos
+# (buckets SERVE_BUCKETS, no coalescing window), the warmup of a config of
+# SERVE_STEPS steps at SERVE_LR, a burst of SERVE_BURST requests with
+# bench_serve's guesses (bench.py:1134-1136), rows against solo fits at
+# SERVE_RTOL; bucket 4 with a NaN row for POISON_STEPS steps; profiler
+# windows of a bucket-4 dispatch of SYNC_STEPS steps; bench_serve at its
+# published size (bench.py:2161-2165: BENCH_SERVE_REQUESTS requests at
+# BENCH_SERVE_HALOS halos, window BENCH_SERVE_WINDOW_S s), and the worker
+# process at that size.
+SERVE_BUCKETS = (1, 4, 16)
+SERVE_BURST, SERVE_STEPS, SERVE_LR, SERVE_RTOL = 20, 200, 0.01, 1e-6
+POISON_STEPS, SYNC_STEPS = 20, 5
+BENCH_SERVE_REQUESTS, BENCH_SERVE_HALOS = 64, 100_000
+BENCH_SERVE_WINDOW_S = 0.2
 
 
 def log(msg):
@@ -1455,6 +1489,547 @@ def hmc_phase(reset_launches, read_launches, wrappers, model, ens):
                 start=(init, kw))
 
 
+def serve_guesses(n):
+    """``bench_serve``'s tenant guesses (``bench.py:1134-1136``): ``(n, 2)``
+    from ``default_rng(0)``, p0 uniform in (-2.3, -1.2), p1 in (0.3,
+    0.8)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return np.column_stack([rng.uniform(-2.3, -1.2, n),
+                            rng.uniform(0.3, 0.8, n)])
+
+
+def read_line(proc, timeout):
+    """The next line of ``proc``'s standard output within ``timeout`` s
+    ('' when it ends or the time runs out)."""
+    import select
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    return proc.stdout.readline() if ready else ""
+
+
+def metric_values(text, name):
+    """``{labels: value}`` of the samples called ``name`` in a Prometheus
+    text page (``labels`` the text between the braces, '' for none)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or not line.startswith(name):
+            continue
+        key, value = line.rsplit(" ", 1)
+        if key == name:
+            out[""] = float(value)
+        elif key.startswith(name + "{"):
+            out[key[len(name) + 1:-1]] = float(value)
+    return out
+
+
+def serving_phase(reset_launches, read_launches, wrappers, device="cuda",
+                  big=BIG_HALOS, small=BENCH_SERVE_HALOS,
+                  n_bench=BENCH_SERVE_REQUESTS, profile=True):
+    """Phase 23: ``FitScheduler`` over the SMF model at ``big`` halos
+    (warmup, a burst, NaN poison, ``/metrics``), profiler windows of a
+    dispatch against ``run_adam_scan`` alone, ``bench_serve`` at
+    ``small`` halos and the worker process behind its wire.  On the CPU
+    (``device="cpu"``, small sizes, no profiler windows) it rehearses
+    the same checks."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.models import SMFModel, make_smf_data
+    from multigrad_tpu_torch.serve import (FitConfig, FitFailed,
+                                           FitScheduler, cache_entries)
+    from multigrad_tpu_torch.telemetry import (LiveServer, MemorySink,
+                                               MetricsLogger, Tracer)
+    from multigrad_tpu_torch.telemetry.resources import compile_totals
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    zero = dict.fromkeys(wrappers, 0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counted_here(fn):
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        return result, time.perf_counter() - t0, read_launches()
+
+    def erf(n):
+        return zero | {"erf_counts_fwd": n, "erf_counts_bwd": n}
+
+    # 1. warmup at the main path's width --------------------------------
+    model = SMFModel(aux_data=make_smf_data(big, device=device))
+    config = FitConfig(nsteps=SERVE_STEPS, learning_rate=SERVE_LR)
+    sink, tracer, live = MemorySink(), Tracer(), LiveServer(port=0)
+    logger = MetricsLogger(sink)
+    sched = FitScheduler(model, buckets=SERVE_BUCKETS, batch_window_s=0.0,
+                         start=False, telemetry=logger, live=live,
+                         tracer=tracer, flight_dir=tmp)
+    try:
+        libs_before, builds_before = cache_entries(), compile_totals()
+        entries, warm_s, warm_launches = counted_here(
+            lambda: sched.warmup(config, ndim=2))
+        builds = {k: compile_totals()[k] - builds_before[k]
+                  for k in ("misses", "hits")}
+        log(f"serve warmup at {big:,} halos, buckets {SERVE_BUCKETS}: "
+            f"{warm_s:.4f} s, entries "
+            f"{[(e['bucket'], e['compile_s']) for e in entries]}, launches "
+            f"{warm_launches}, kernel libraries built {builds['misses']} "
+            f"(found built {builds['hits']}), libraries in the cache "
+            f"{libs_before} -> {cache_entries()}")
+        check([e["bucket"] for e in entries] == list(SERVE_BUCKETS),
+              f"warmup entries {entries}")
+        check(warm_launches == erf(2 * sum(SERVE_BUCKETS)),
+              f"warmup launches (a step and a finalize a bucket): "
+              f"{warm_launches}")
+        check(builds["misses"] == 0 and cache_entries() == libs_before,
+              f"the warmup ran nvcc: {builds}, {cache_entries()} libraries")
+        check(not sched.stats.get("submitted")
+              and not sched.stats.get("dispatches"),
+              f"the warmup reached the scheduler's stats: {sched.stats}")
+
+        # 2. a burst at the main path's width ---------------------------
+        guesses = serve_guesses(SERVE_BURST)
+        futs = [sched.submit(g, config=config) for g in guesses]
+        sync()
+        reset_launches()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        workspaces = workspace_keys()
+        t0 = time.perf_counter()
+        sched.start()
+        results = [f.result(timeout=900) for f in futs]
+        burst_s = time.perf_counter() - t0
+        sync()
+        burst_launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        stats = sched.stats
+        fph = SERVE_BURST / burst_s * 3600.0
+        hops = {h: statistics.median(r.hops[h] for r in results)
+                for h in ("queue_wait", "dispatch", "adam_segments",
+                          "finalize")}
+        truth = [r for r in sink.records
+                 if r["event"] == "measured_vs_modeled"]
+        solo = {}
+        for i in (0, SERVE_BURST - 1):
+            ref = model.run_adam(guess=guesses[i], nsteps=SERVE_STEPS,
+                                 learning_rate=SERVE_LR,
+                                 progress=False).cpu().numpy()
+            solo[i] = (np.array_equal(results[i].traj, ref),
+                       np.allclose(results[i].traj, ref, rtol=SERVE_RTOL,
+                                   atol=0))
+        log(f"serve burst at {big:,} halos: {SERVE_BURST} requests x "
+            f"{SERVE_STEPS} steps in {burst_s:.4f} s = {fph:.1f} fits/hour "
+            f"(the scheduler's own {stats['fits_per_hour']:.1f}); "
+            f"dispatches {stats['bucket_dispatches']}, padded "
+            f"{stats['rows_padded']}; hop medians (s) {hops}; launches "
+            f"{burst_launches}; peak above the model "
+            f"{None if peak is None else peak / 1e9} GB; memory truth "
+            f"{[(r['bucket'], r['measured_ratio']) for r in truth]}; "
+            f"requests 0 and {SERVE_BURST - 1} against solo fits (bit-"
+            f"identical, within rtol {SERVE_RTOL}): {solo}")
+        check(stats["dispatches"] == 2
+              and stats["bucket_dispatches"] == {16: 1, 4: 1}
+              and stats["rows_padded"] == 0
+              and stats["completed"] == SERVE_BURST,
+              f"burst stats {stats}")
+        check([r.bucket for r in results] == [16] * 16 + [4] * 4,
+              f"buckets {[r.bucket for r in results]}")
+        check(burst_launches == erf(SERVE_BURST * (SERVE_STEPS + 1)),
+              f"burst launches {burst_launches}")
+        check(all(ok for _, ok in solo.values()),
+              f"served rows against solo fits: {solo}")
+        if on_card:
+            check_workspaces(device, workspaces)
+
+        # 7. /metrics against the scheduler's counters -------------------
+        code, page = get(live.url + "/metrics")
+        fits = metric_values(page, "multigrad_serve_fits_total")
+        disp = metric_values(page, "multigrad_serve_dispatches_total")
+        padded = metric_values(page, "multigrad_serve_padded_rows_total")
+        log(f"/metrics {code}: fits {fits}, dispatches {disp}, padded "
+            f"{padded}")
+        check(code == 200 and fits == {'outcome="ok"': stats["completed"]}
+              and disp == {f'bucket="{b}"': n for b, n
+                           in stats["bucket_dispatches"].items()}
+              and padded == {"": stats["rows_padded"]},
+              f"/metrics against stats {stats}: {fits} {disp} {padded}")
+    finally:
+        sched.close()
+        live.stop()
+        logger.close()
+
+    # 3. NaN poison on the card ------------------------------------------
+    g = serve_guesses(4)
+    poison = [float("nan"), 0.5]
+
+    def run_batch(rows, retry):
+        s = FitScheduler(model, buckets=(1, 4), batch_window_s=0.0,
+                         start=False, flight_dir=tmp, retry_poisoned=retry)
+        try:
+            fs = [s.submit(r, nsteps=POISON_STEPS, learning_rate=SERVE_LR)
+                  for r in rows]
+            s.start()
+            out = []
+            for f in fs:
+                try:
+                    out.append(f.result(timeout=300))
+                except FitFailed as e:
+                    out.append(e)
+            return out, s.stats
+        finally:
+            s.close()
+
+    clean, _ = run_batch([g[0], g[3], g[1], g[2]], False)
+    dirty, dirty_stats = run_batch([g[0], poison, g[1], g[2]], False)
+    again, again_stats = run_batch([g[0], poison, g[1], g[2]], True)
+    mates = all(np.array_equal(out[i].traj, clean[i].traj)
+                and out[i].loss == clean[i].loss and out[i].bucket == 4
+                for out in (dirty, again) for i in (0, 2, 3))
+    failed = dirty[1]
+    ring = None
+    if isinstance(failed, FitFailed) and failed.bundle_path:
+        with open(failed.bundle_path) as f:
+            ring = json.load(f)["detail"].get("resources")
+    last = ring[-1] if ring else {}
+    device_fields = [last.get(k) for k in (
+        "device_bytes_in_use", "device_peak_bytes", "device_bytes_limit")]
+    log(f"poison in bucket 4, {POISON_STEPS} steps: mates bit-identical to "
+        f"the clean batch {mates}; the poisoned request {failed!r}, bundle "
+        f"{getattr(failed, 'bundle_path', None)}, its resource ring "
+        f"{len(ring or [])} samples, the last device fields "
+        f"{device_fields}; with a retry {again[1]!r}, stats {again_stats}")
+    check(mates, "a poisoned row changed its batch-mates")
+    check(isinstance(failed, FitFailed) and failed.bundle_path
+          and os.path.exists(failed.bundle_path) and ring,
+          f"poisoned request: {failed!r}")
+    if on_card:
+        check(None not in device_fields,
+              f"the bundle's resource ring: {last}")
+    check(dirty_stats["dispatches"] == 1 and dirty_stats["failed"] == 1,
+          f"poison stats {dirty_stats}")
+    check(isinstance(again[1], FitFailed) and again_stats["retried"] == 1
+          and again_stats["dispatches"] == 2
+          and again_stats["bucket_dispatches"] == {4: 1, 1: 1},
+          f"one retry in a fresh bucket: {again[1]!r} {again_stats}")
+
+    # 4. no synchronizing call added by the serving layer ----------------
+    sync_out = None
+    if profile:
+        sync_out = serve_sync_windows(reset_launches, read_launches, model,
+                                      g, erf)
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 5. bench_serve at its published size -------------------------------
+    small_model = SMFModel(aux_data=make_smf_data(small, device=device))
+    bench_guesses = serve_guesses(n_bench)
+    legs, leg_results = {}, {}
+    for tag, buckets in (("batched", SERVE_BUCKETS), ("sequential", (1,))):
+        s = FitScheduler(small_model, buckets=buckets,
+                         batch_window_s=BENCH_SERVE_WINDOW_S, start=False,
+                         retry_poisoned=False)
+
+        def burst():
+            fs = [s.submit(b, nsteps=SERVE_STEPS, learning_rate=SERVE_LR)
+                  for b in bench_guesses]
+            return [f.result(timeout=900) for f in fs]
+
+        try:
+            s.start()
+            burst()
+            warm = s.stats
+            t0 = time.perf_counter()
+            leg_results[tag] = burst()
+            dt = time.perf_counter() - t0
+            st = s.stats
+        finally:
+            s.close(drain=False)
+        legs[tag] = {"buckets": list(buckets),
+                     "fits_per_hour": n_bench / dt * 3600.0, "wall_s": dt,
+                     "dispatches": st["dispatches"] - warm["dispatches"],
+                     "rows_padded": st["rows_padded"] - warm["rows_padded"]}
+    ratio = legs["batched"]["fits_per_hour"] \
+        / legs["sequential"]["fits_per_hour"]
+    agree = all(np.allclose(a.traj, b.traj, rtol=SERVE_RTOL, atol=0)
+                for a, b in zip(leg_results["batched"],
+                                leg_results["sequential"]))
+    log(f"bench_serve at {small:,} halos, {n_bench} requests x "
+        f"{SERVE_STEPS} steps, window {BENCH_SERVE_WINDOW_S} s: {legs}; "
+        f"batched / sequential {ratio:.4f}; every batched row within rtol "
+        f"{SERVE_RTOL} of its sequential fit: {agree}")
+    check(agree and all(np.isfinite(r.loss) for rs in leg_results.values()
+                        for r in rs), "bench_serve results")
+    check(legs["sequential"]["dispatches"] == n_bench,
+          f"the sequential leg's dispatches: {legs['sequential']}")
+
+    # 6. the worker process behind its wire ------------------------------
+    worker = serve_worker_check(small, device, on_card,
+                                leg_results["sequential"][:2],
+                                bench_guesses[:2], small_model)
+    del small_model
+    return dict(entries=entries, warm_s=warm_s, warm_launches=warm_launches,
+                builds=builds, launches=burst_launches, burst_s=burst_s,
+                fits_per_hour=fph, sched_fph=stats["fits_per_hour"],
+                hops=hops, peak=peak,
+                memory_ratio=[(r["bucket"], r["measured_ratio"])
+                              for r in truth],
+                solo=solo, mates=mates, sync=sync_out, bench=legs,
+                ratio=ratio, worker=worker)
+
+
+def workspace_keys():
+    """The (device, stream) keys of the kernels' scratch so far."""
+    from multigrad_tpu_torch.ops import cuda_build
+    return set(cuda_build._WORKSPACES)
+
+
+def check_workspaces(device, before):
+    """The kernels' scratch after a served burst: the dispatcher thread
+    ran on its current stream, the default one, so it used the main
+    thread's workspace of that stream (launches on one stream run in
+    order) and made none; a thread on a stream of its own gets its
+    own."""
+    import threading
+    import torch
+    from multigrad_tpu_torch.ops import cuda_build
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    added = workspace_keys() - before
+    main = cuda_build.workspace(dev)
+    side = {}
+
+    def on_own_stream():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            side["ws"] = cuda_build.workspace(dev)
+
+    thread = threading.Thread(target=on_own_stream)
+    thread.start()
+    thread.join()
+    log(f"kernel workspaces: made by the burst {sorted(added)}, in all "
+        f"{sorted(workspace_keys())}; the main thread's stream "
+        f"{main.stream}, a thread on its own stream {side['ws'].stream}")
+    check(not added and (dev.index, main.stream) in before,
+          f"the dispatcher ran on another stream: {sorted(added)}")
+    check(side["ws"].stream != main.stream
+          and side["ws"].partials != main.partials,
+          "a second stream shares the default stream's scratch")
+
+
+def serve_sync_windows(reset_launches, read_launches, model, g, erf):
+    """Phase 23's profiler windows: one bucket-4 dispatch of SYNC_STEPS
+    steps through a scheduler with its telemetry, registry, tracer,
+    resource monitor and rollups on, and ``run_adam_scan`` on the same
+    guesses with the same wrapper, followed by the dispatch's finalize,
+    fence and read, called directly.  Both windows must hold the same
+    synchronizing runtime calls and the same erf launches; a window whose
+    trace lost an erf event runs again (phase 22's rule)."""
+    import torch
+    from multigrad_tpu_torch import run_adam_scan
+    from multigrad_tpu_torch.inference.ensemble import batched_fit_wrapper
+    from multigrad_tpu_torch.serve import FitScheduler
+    from multigrad_tpu_torch.telemetry import (LiveMetrics, MemorySink,
+                                               MetricsLogger, Tracer,
+                                               profiled_fit)
+    from multigrad_tpu_torch.telemetry.profile import WINDOW_ATTEMPTS
+    rows = g[:4]
+    want = 4 * (SYNC_STEPS + 1)
+
+    def direct():
+        def run():
+            leaves = model.aux_leaves()
+            with torch.no_grad():
+                inits = torch.as_tensor(rows, dtype=torch.float32,
+                                        device=model.device)
+                traj = run_adam_scan(batched_fit_wrapper(model, False),
+                                     inits, nsteps=SYNC_STEPS,
+                                     learning_rate=SERVE_LR,
+                                     fn_args=(leaves,))
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(traj.device))
+                done.synchronize()
+                losses, _ = model.batched_loss_and_grad_fn(False)(
+                    traj[-1], leaves, 0)
+                torch.cat([traj.reshape(-1), losses.reshape(-1)]).cpu()
+        return run, lambda: None
+
+    def served():
+        s = FitScheduler(model, buckets=(4,), batch_window_s=0.0,
+                         start=False, telemetry=MetricsLogger(MemorySink()),
+                         live=LiveMetrics(), tracer=Tracer())
+        fs = [s.submit(r, nsteps=SYNC_STEPS, learning_rate=SERVE_LR)
+              for r in rows]
+
+        def run():
+            s.start()
+            for f in fs:
+                f.result(timeout=300)
+        return run, s.close
+
+    retries = {"served": 0, "direct": 0}
+
+    def window(label, make):
+        run, done = make()
+        run()                          # warm-up, outside the window
+        done()
+        for attempt in range(1, WINDOW_ATTEMPTS + 1):
+            run, done = make()
+            torch.cuda.synchronize()
+            reset_launches()
+            try:
+                with profiled_fit(name=label, nsteps=SYNC_STEPS + 1,
+                                  top=64) as prof:
+                    run()
+            finally:
+                done()
+            launched = read_launches()
+            rec = prof.record
+            check("error" not in rec, f"profile record: {rec}")
+            check(launched == erf(want),
+                  f"launches in the {label} window: {launched}")
+            traced = {stem: sum(o["count"] for o in rec["top_ops"]
+                                if stem in o["op"])
+                      for stem in ("erf_fwd_kernel", "erf_bwd_kernel")}
+            if set(traced.values()) == {want}:
+                break
+            retries[label] += 1
+            log(f"serve profile, {label}, attempt {attempt}: the trace "
+                f"holds {traced} erf launches of the {want} each counted")
+        check(set(traced.values()) == {want}, f"the profiler lost erf "
+              f"kernel events in {WINDOW_ATTEMPTS} {label} windows: "
+              f"{traced}")
+        log(f"serve profile, {label}: sync calls {rec['sync_calls']}, wall "
+            f"{rec['wall_s']:.4f} s, device {rec['total_device_us']:.1f} "
+            f"us, device share {rec['device_frac_of_wall']}")
+        return rec
+
+    served_rec = window("served", served)
+    direct_rec = window("direct", direct)
+    added = {name: served_rec["sync_calls"][name]
+             - direct_rec["sync_calls"][name] for name in SYNC_CALLS}
+    log(f"serve profile windows run again for lost erf events: {retries}; "
+        f"sync calls the serving layer added: {added}")
+    check(not any(added.values()), f"the serving layer added "
+          f"synchronizing calls: {added}")
+    return dict(served=served_rec["sync_calls"],
+                direct=direct_rec["sync_calls"], added=added,
+                served_wall_s=served_rec["wall_s"],
+                direct_wall_s=direct_rec["wall_s"], retries=retries)
+
+
+def serve_worker_check(n_halos, device, on_card, local, guesses, model):
+    """Phase 23's worker: ``python -m multigrad_tpu_torch.serve.worker``
+    at ``n_halos`` halos, buckets 1 and 4, the kernel libraries from this
+    run's build directory.  Its READY handshake; two submits over the
+    wire, the first equal bit for bit to ``local[0]`` (this process's
+    bucket-1 fit of the same guess), the second answered; no ``nvcc`` in
+    the worker; SIGTERM answered with ``draining`` and ``drained``, exit
+    0.  A second process checks that the catalog it builds is this
+    one's."""
+    import hashlib
+    import signal
+    import socket
+    import numpy as np
+    from multigrad_tpu_torch.ops import cuda_build
+    from multigrad_tpu_torch.serve import FitConfig, cache_entries
+    from multigrad_tpu_torch.serve.wire import (JsonlChannel, config_to_wire,
+                                                result_from_wire)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    build = str(cuda_build.build_dir())
+    libs = cache_entries(build)
+    cmd = [sys.executable, "-m", "multigrad_tpu_torch.serve.worker",
+           "--model", "smf", "--model-kwargs",
+           json.dumps({"num_halos": n_halos}), "--buckets", "1,4",
+           "--compile-cache", build]
+    if not on_card:
+        cmd += ["--device", "cpu"]
+    digest = ("import hashlib; from multigrad_tpu_torch.models import "
+              "make_smf_data; print(hashlib.sha256(make_smf_data("
+              f"{n_halos}, device={device!r})['log_halo_masses'].cpu()"
+              ".numpy().tobytes()).hexdigest())")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            text=True)
+    other = subprocess.Popen([sys.executable, "-c", digest], cwd=HERE,
+                             env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        mine = hashlib.sha256(model.aux_data["log_halo_masses"].cpu()
+                              .numpy().tobytes()).hexdigest()
+        theirs = other.communicate(timeout=300)[0].strip()
+        check(mine == theirs, f"make_smf_data({n_halos}) differs between "
+              f"processes: {mine} against {theirs}")
+        line = read_line(proc, 300)
+        ready_s = time.perf_counter() - t0
+        check(line.startswith("FLEET-WORKER-READY "),
+              f"no READY handshake: {line!r}")
+        info = json.loads(line.split(" ", 1)[1])
+        chan = JsonlChannel(socket.create_connection(
+            ("127.0.0.1", info["port"]), timeout=300))
+        config = config_to_wire(FitConfig(nsteps=SERVE_STEPS,
+                                          learning_rate=SERVE_LR))
+        answers, beats = {}, []
+
+        def until(pred):
+            while True:
+                msg = chan.recv()
+                check(msg is not None, "the worker hung up")
+                if msg["op"] == "heartbeat":
+                    beats.append(msg)
+                elif msg["op"] in ("result", "error"):
+                    answers[msg["rid"]] = msg
+                if pred(msg):
+                    return msg
+
+        for i, guess in enumerate(guesses):
+            chan.send({"op": "submit", "rid": f"r{i}",
+                       "guess": [float(v) for v in guess],
+                       "config": config, "submitted_t": time.time()})
+            until(lambda m, i=i: m.get("rid") == f"r{i}")
+        n_beats = len(beats)
+        until(lambda m: m["op"] == "heartbeat" and len(beats) > n_beats)
+        got = [answers[f"r{i}"] for i in range(len(guesses))]
+        check(all(a["op"] == "result" for a in got),
+              f"worker answers {[a['op'] for a in got]}: {got}")
+        res = [result_from_wire(a["result"], i) for i, a in enumerate(got)]
+        same = np.array_equal(res[0].traj, local[0].traj) \
+            and res[0].loss == local[0].loss and res[0].bucket == 1
+        snap = beats[-1].get("resources") or {}
+        proc.send_signal(signal.SIGTERM)
+        draining = until(lambda m: m["op"] in ("draining", "drained"))
+        drained = draining if draining["op"] == "drained" else until(
+            lambda m: m["op"] == "drained")
+        code = proc.wait(timeout=120)
+        out = dict(ready_s=ready_s,
+                   dispatch_ms=[1e3 * r.hops["dispatch"] for r in res],
+                   bit_equal=same, compile_misses=snap.get("compile_misses"),
+                   compile_hits=snap.get("compile_hits"),
+                   exit=code, drained=drained["stats"])
+        log(f"worker at {n_halos:,} halos: READY in {ready_s:.1f} s; "
+            f"first and second dispatch hops {out['dispatch_ms']} ms; the "
+            f"first result equal bit for bit to this process's bucket-1 "
+            f"fit: {same}; kernel libraries built in the worker "
+            f"{snap.get('compile_misses')} (found built "
+            f"{snap.get('compile_hits')}); SIGTERM: {draining['op']} then "
+            f"drained {drained['stats']}, exit {code}")
+        check(same, "the worker's result differs from the in-process one")
+        check(snap.get("compile_misses") == 0
+              and cache_entries(build) == libs,
+              f"the worker ran nvcc: {snap}")
+        check(draining["op"] == "draining" and code == 0,
+              f"SIGTERM drain: {draining} exit {code}")
+        return out
+    finally:
+        for p in (proc, other):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2574,6 +3149,11 @@ def main():
     stream_tap = tapped_streamed_phase()
     torch.cuda.empty_cache()
 
+    # 23. serving -------------------------------------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 23")
+    serve = serving_phase(reset_launches, read_launches, wrappers)
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
@@ -2738,7 +3318,8 @@ def main():
                  launches_polish=polish["launches"][k["name"]],
                  launches_hmc=hmc["launches"][k["name"]],
                  launches_nccl=nccl["launches"][k["name"]],
-                 launches_telemetry=monitored["launches"][k["name"]])
+                 launches_telemetry=monitored["launches"][k["name"]],
+                 launches_serve=serve["launches"][k["name"]])
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
@@ -2776,6 +3357,17 @@ def main():
         f"calls added {monitored['sync_added']}; tapped HMC "
         f"{hmc_tap['dps']:.4f} draws/s (phase 20 {hmc['dps']:.4f}); tapped "
         f"streamed {stream_tap['steps_per_sec']} steps/s")
+    log(f"serving: warmup {serve['warm_s']:.4f} s "
+        f"({[(e['bucket'], e['compile_s']) for e in serve['entries']]}); "
+        f"burst at 1e8 {serve['fits_per_hour']:.1f} fits/hour, hop "
+        f"medians {serve['hops']} s, peak "
+        f"{serve['peak'] / 1e9:.4f} GB at K = 16, memory truth "
+        f"{serve['memory_ratio']}; rows against solo {serve['solo']}; "
+        f"sync calls added {serve['sync']['added']}; bench_serve at 1e5 "
+        f"batched {serve['bench']['batched']['fits_per_hour']:.1f} / "
+        f"sequential {serve['bench']['sequential']['fits_per_hour']:.1f} "
+        f"fits/hour = {serve['ratio']:.4f}; worker dispatch hops "
+        f"{serve['worker']['dispatch_ms']} ms")
     log(f"profiler windows: {windows().windows}, run again "
         f"{windows().retries} times for a lost lead-in")
     log(f"done in {time.perf_counter() - t_start:.0f} s")

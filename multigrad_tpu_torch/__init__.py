@@ -22,7 +22,10 @@ up from a launcher's environment, each process on its card.
 ``telemetry`` watches the fits: records every ``log_every`` steps copied
 off the card without a wait, a NaN sentinel and postmortem bundles,
 comm bytes counted, a live HTTP endpoint, alert rules and
-``torch.profiler`` fit profiles.  The hot
+``torch.profiler`` fit profiles.  ``serve`` serves fits: a
+``FitScheduler`` packs many tenants' requests into batched buckets on
+the card, and ``python -m multigrad_tpu_torch.serve.worker`` puts one
+behind the JAX package's wire.  The hot
 op, the erf-CDF binned counts of the SMF and galaxy–halo models, runs as
 hand-written CUDA kernels on CUDA tensors and as their plain PyTorch
 versions on CPU tensors: the dense counts with a scalar or a
@@ -67,6 +70,10 @@ from .telemetry import (AlertEngine, CommCounter, FlightRecorder,  # noqa
                         LiveMetrics, LiveServer, MemorySink,
                         MetricsLogger, ScalarTap, measure_model_comm,
                         profiled_fit, run_record)
+from . import serve  # noqa: F401
+from .serve import (FitConfig, FitFuture, FitResult,  # noqa
+                    FitScheduler, enable_compile_cache,
+                    warmup_buckets)
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
@@ -89,5 +96,7 @@ __all__ = [
     "CommCounter", "Heartbeat", "measure_model_comm", "run_record",
     "FlightRecorder", "FlightRecorderTripped", "profiled_fit",
     "LiveMetrics", "LiveServer", "AlertEngine",
+    "serve", "FitScheduler", "FitConfig", "FitFuture", "FitResult",
+    "enable_compile_cache", "warmup_buckets",
     "__version__",
 ]

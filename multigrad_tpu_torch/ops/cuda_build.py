@@ -2,10 +2,13 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ctypes at first use.
-The library goes to ``build/multigrad_tpu_torch/`` beside the package,
-under a name that carries the hash of the source, the shared headers and
-the flags, so an edited source is rebuilt.  :func:`build` starts one
-``nvcc`` per source that needs it, all at once.
+The library goes to ``build/multigrad_tpu_torch/`` beside the package (or
+the directory :func:`set_build_dir` names: the serving layer's compile
+cache), under a name that carries the hash of the source, the shared
+headers and the flags, so an edited source is rebuilt.  :func:`build`
+starts one ``nvcc`` per source that needs it, all at once, and reports
+each library to the kernel-build observers of
+:func:`~multigrad_tpu_torch.utils.util.add_compile_observer`.
 
 The wrappers share one call path, kept short because at the history
 model's 1e6-particle launches a call's host time is of the order of the
@@ -25,16 +28,19 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from ..utils.util import _notify_compile
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Every kernel source of the port, one shared library each.
 SOURCES = ("erf_counts.cu", "fused_counts.cu", "pair_counts.cu")
-#: Where the shared libraries are built: ``build/multigrad_tpu_torch/``
-#: beside the package.
+#: Where the shared libraries are built by default:
+#: ``build/multigrad_tpu_torch/`` beside the package.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "multigrad_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,6 +61,7 @@ ERF_FWD, ERF_BWD, FUSED_FWD, FUSED_BWD = range(4)
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_build_dir = BUILD_DIR
 # (device index, stream) -> Workspace.
 _WORKSPACES: dict = {}
 
@@ -81,13 +88,28 @@ def sources_digest() -> str:
     return digest.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """The directory the kernel libraries are built into and loaded
+    from (process-wide)."""
+    return _build_dir
+
+
+def set_build_dir(path) -> Path:
+    """Make ``path`` the directory the kernel libraries are built into
+    and loaded from, for every later :func:`build` and :func:`load` of
+    this process (libraries already loaded stay loaded); returns it."""
+    global _build_dir
+    _build_dir = Path(path).resolve()
+    return _build_dir
+
+
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>`` is (or will be) built."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
+    return _build_dir / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(sources=SOURCES):
@@ -96,14 +118,19 @@ def build(sources=SOURCES):
     return the libraries' paths."""
     paths = [library_path(s) for s in sources]
     todo = [(s, p) for s, p in zip(sources, paths) if not p.exists()]
+    for source, path in zip(sources, paths):
+        if (source, path) not in todo:
+            _notify_compile(source, 0.0, True)
     if not todo:
         return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = paths[0].parent
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
+    t0 = time.perf_counter()
     try:
         for source, lib in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             proc = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
@@ -114,6 +141,7 @@ def build(sources=SOURCES):
             out = proc.communicate()[0]
             if proc.returncode == 0:
                 os.replace(tmp, lib)
+                _notify_compile(source, time.perf_counter() - t0, False)
             else:
                 failed.append(f"nvcc failed on {CSRC / source}:\n{out}")
         if failed:

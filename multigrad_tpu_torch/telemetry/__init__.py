@@ -32,10 +32,25 @@ One record stream, many sinks:
 * :mod:`.profile` — :func:`profiled_fit`: ``torch.profiler`` capture
   scoped to a fit, parsed into per-kernel device time.
 
+The serving layer's telemetry (:mod:`multigrad_tpu_torch.serve`):
+
+* :mod:`.tracing` — :class:`TraceContext` (W3C ``traceparent``) and
+  :class:`Tracer`: every served request's hops as ``trace_span``
+  records under one trace id.
+* :mod:`.resources` — :class:`ResourceMonitor`: host RSS, the CUDA
+  caching allocator's device memory (never initialising CUDA), the
+  dispatch duty cycle and kernel-build accounting, exported as
+  ``multigrad_resource_*`` gauges; :func:`autoscaler_inputs`,
+  :func:`measured_vs_modeled`.
+* :mod:`.rollup` — :class:`RollupStore`: windowed history fed from the
+  scheduler's settle paths and the ``multigrad_rollup_*`` signals.
+* :mod:`.budget` — :class:`SloBudget` error budgets over the declared
+  SLOs and the :class:`BurnRateAlert` rule.
+
 Not ported yet: the cost model (ROADMAP Queue 1 item 10, with
-``analysis/``), and the fleet-facing modules ``aggregate``,
-``dashboard``, ``regress``, ``top``, ``rollup``, ``budget``, ``trace``,
-``tracing`` and ``resources`` (item 8, serving).
+``analysis/``), and the fleet-watching modules ``aggregate``,
+``dashboard``, ``regress``, ``top`` and ``trace`` (item 8's second
+slice).
 
 The stdlib-only modules of the JAX package are copied, not imported:
 ``import multigrad_tpu.<anything>`` runs ``multigrad_tpu/__init__``,
@@ -58,6 +73,12 @@ from .live import (LiveMetrics, LiveServer, LiveSink,  # noqa: F401
 from .alerts import (AlertEngine, AlertRule, DivergenceRate,  # noqa: F401
                      GradExplosion, HeartbeatStall, LossPlateau,
                      ThroughputDrop, default_rules)
+from .tracing import (TraceContext, Tracer, new_trace,  # noqa: F401
+                      parse_traceparent)
+from .resources import (ResourceMonitor, autoscaler_inputs,  # noqa: F401
+                        measured_vs_modeled)
+from .rollup import RollupStore  # noqa: F401
+from .budget import BurnRateAlert, SloBudget  # noqa: F401
 
 __all__ = [
     "MetricsLogger", "JsonlSink", "CsvSink", "MemorySink",
@@ -72,4 +93,7 @@ __all__ = [
     "AlertEngine", "AlertRule", "LossPlateau", "GradExplosion",
     "ThroughputDrop", "DivergenceRate", "HeartbeatStall",
     "default_rules",
+    "TraceContext", "Tracer", "new_trace", "parse_traceparent",
+    "ResourceMonitor", "autoscaler_inputs", "measured_vs_modeled",
+    "RollupStore", "SloBudget", "BurnRateAlert",
 ]

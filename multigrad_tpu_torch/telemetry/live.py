@@ -713,10 +713,10 @@ class LiveSink:
     def resources_summary(self) -> Optional[dict]:
         """Process-resource health for the ``/status`` ``resources``
         section, read from the ``multigrad_resource_*`` gauges a
-        ``ResourceMonitor`` exports (the JAX package's; the port's comes
-        with serving).
+        :class:`~multigrad_tpu_torch.telemetry.ResourceMonitor` exports.
 
-        Also folds in the :func:`_autoscaler_inputs` contract (``busy_frac``, queue-wait p95,
+        Also folds in the :func:`~multigrad_tpu_torch.telemetry
+        .autoscaler_inputs` contract (``busy_frac``, queue-wait p95,
         measured memory headroom) so the one documented place an
         autoscaler reads is the same endpoint operators look at.
         ``None`` when no monitor has exported (monitoring off) —
@@ -760,7 +760,8 @@ class LiveSink:
         fph = m.value("multigrad_serve_fits_per_hour")
         if fph is not None:
             out["fits_per_hour"] = fph
-        out["autoscaler"] = _autoscaler_inputs(m)
+        from .resources import autoscaler_inputs
+        out["autoscaler"] = autoscaler_inputs(m)
         # int-valued gauges come back as floats from the registry;
         # re-coerce byte/count fields so the JSON reads naturally.
         for key in ("rss_bytes", "device_bytes_in_use",
@@ -1010,40 +1011,6 @@ class LiveServer:
     def __exit__(self, *exc):
         self.stop()
         return False
-
-
-def _autoscaler_inputs(lm) -> dict:
-    """The JAX package's ``resources.autoscaler_inputs(live)`` with no
-    monitor and no rollup store: every field read from the registry's
-    exported gauges, ``None`` where unmeasured (``resources``, which
-    exports them, comes with serving: ROADMAP Queue 1 item 8)."""
-    busy = lm.value("multigrad_resource_busy_frac")
-    limit = lm.value("multigrad_resource_device_bytes_limit")
-    peak = lm.value("multigrad_resource_device_peak_bytes")
-    headroom = int(limit - peak) \
-        if limit is not None and peak is not None else None
-    p95 = lm.value("multigrad_rollup_queue_wait_p95_s")
-    trend = lm.value("multigrad_rollup_queue_wait_trend")
-    sustained = lm.value("multigrad_rollup_busy_frac_sustained")
-    if p95 is None:
-        for name in ("multigrad_serve_hop_seconds",
-                     "multigrad_fleet_hop_seconds"):
-            for labels in lm.label_sets(name):
-                if labels.get("hop") == "queue_wait":
-                    p95 = lm.quantile(name, 0.95, labels=labels)
-                    break
-            if p95 is not None:
-                break
-    burn = None
-    for labels in lm.label_sets("multigrad_slo_budget_burn_rate"):
-        v = lm.value("multigrad_slo_budget_burn_rate", labels=labels)
-        if v is not None and (burn is None or v > burn):
-            burn = v
-    return {"busy_frac": busy, "queue_wait_p95_s": p95,
-            "headroom_bytes": headroom,
-            "queue_wait_p95_trend": trend,
-            "busy_frac_sustained": sustained,
-            "slo_burn_rate": burn}
 
 
 def wire_monitoring(telemetry, log_every: int, live=None, alerts=None,

@@ -50,8 +50,8 @@ def span(logger, name: str, trace=None, **fields):
     written at span *exit* (elapsed is known then); spans that raise
     still record, with ``ok: false``.
 
-    ``trace`` accepts any object with ``trace_id`` and ``span_id`` (the
-    JAX package's ``TraceContext``; the port's comes with serving): the
+    ``trace`` accepts a :class:`~multigrad_tpu_torch.telemetry.tracing
+    .TraceContext` (or any object with ``trace_id`` and ``span_id``): the
     span record is stamped with the trace's id and the context's span
     id as ``parent_span_id``, so wall-clock spans in a fit's telemetry
     stream correlate with the distributed request trace that

@@ -16,7 +16,42 @@ except ImportError:  # pragma: no cover
 
 __all__ = ["resolve_device", "simple_grad_descent",
            "simple_grad_descent_scan", "GradDescentResult",
-           "latin_hypercube_sampler", "pad_to_multiple", "trange"]
+           "latin_hypercube_sampler", "pad_to_multiple", "trange",
+           "add_compile_observer", "remove_compile_observer"]
+
+# Kernel-build observers (telemetry.resources subscribes).  Every
+# kernel library the port loads passes through ops.cuda_build.build, so
+# that one boundary sees every nvcc build (miss: its wall seconds) and
+# every library found built (hit).  Observers must be cheap and must
+# never raise: a broken observer costs its notification, not the build.
+_COMPILE_OBSERVERS = []
+
+
+def add_compile_observer(callback):
+    """Register ``callback(key, seconds, hit)`` for kernel-library
+    traffic: ``hit=False`` with the ``nvcc`` build's wall seconds on a
+    miss, ``hit=True`` with ``seconds=0.0`` for a library found built
+    (``key`` is the library's source name).  The JAX package's
+    signature; there it observes the program cache."""
+    if callback not in _COMPILE_OBSERVERS:
+        _COMPILE_OBSERVERS.append(callback)
+
+
+def remove_compile_observer(callback):
+    """Unregister a :func:`add_compile_observer` callback (no-op if
+    absent)."""
+    try:
+        _COMPILE_OBSERVERS.remove(callback)
+    except ValueError:
+        pass
+
+
+def _notify_compile(key, seconds, hit):
+    for cb in list(_COMPILE_OBSERVERS):
+        try:
+            cb(key, seconds, hit)
+        except Exception:
+            pass
 
 
 def resolve_device(device=None) -> torch.device:

@@ -348,6 +348,41 @@ TELEMETRY_NAMES = [f"telemetry.{module}.{name}" for module, names in (
     f"utils.profiling.{name}" for name in ("Timer", "trace", "StreamStats",
                                            "StepsPerSecond")]
 
+#: The serving slice's names: every public callable of each module, and
+#: the scheduler's entry points and ``utils.util``'s build observers.
+SERVE_NAMES = [f"{module}.{name}" for module, names in (
+    ("serve.queue", ("FitConfig", "FitRequest", "FitFuture", "FitResult",
+                     "FitQueue", "QueueFullError", "FitCancelled",
+                     "FitDeadlineExceeded", "FitFailed", "FitOOMError")),
+    ("serve.qos", ("QosTag", "QosPolicy", "TenantQuotaError",
+                   "FitShedError", "class_rank", "request_tag", "make_tag",
+                   "edf_key", "edf_sorted", "deadlines_met",
+                   "jain_fairness")),
+    ("serve.slo", ("Slo", "SloMonitor", "parse_slo")),
+    ("serve.robustness", ("nonfinite_rows", "request_postmortem",
+                          "split_expired")),
+    ("serve.compile_cache", ("enable_compile_cache", "cache_entries",
+                             "warmup_buckets")),
+    ("serve.scheduler", ("FitScheduler", "FitScheduler.submit",
+                         "FitScheduler.warmup", "FitScheduler.close",
+                         "FitScheduler.start", "FitScheduler.fits_per_hour")),
+    ("serve.wire", ("JsonlChannel", "config_to_wire", "config_from_wire",
+                    "qos_to_wire", "qos_from_wire", "shed_to_wire",
+                    "shed_from_wire", "result_to_wire", "result_from_wire",
+                    "resources_to_wire", "resources_from_wire",
+                    "rollup_to_wire", "rollup_from_wire")),
+    ("serve.worker", ("build_model", "main")),
+    ("telemetry.resources", ("ResourceMonitor", "read_rss_bytes",
+                             "device_memory", "compile_totals",
+                             "reset_compile_totals", "autoscaler_inputs",
+                             "measured_vs_modeled")),
+    ("telemetry.rollup", ("RollupStore",)),
+    ("telemetry.tracing", ("TraceContext", "Tracer", "new_trace",
+                           "parse_traceparent")),
+    ("telemetry.budget", ("SloBudget", "BurnRateAlert")),
+    ("utils.util", ("add_compile_observer", "remove_compile_observer")))
+    for name in names]
+
 #: Differences by design (ROADMAP Queue 3): the port's keyword-only
 #: ``comm`` of ``run_adam_streamed`` (its checkpoint's writer and
 #: barrier) and ``progress`` of ``trange`` (the port's callers turn the
@@ -368,13 +403,14 @@ JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"]}
     "inference.ensemble.run_multistart_adam",
     "inference.ensemble.run_multistart_lbfgs", "inference.hmc.run_hmc",
     "parallel.distributed.initialize", "utils.util.simple_grad_descent",
-    "utils.util.trange"] + TELEMETRY_NAMES)
+    "utils.util.trange"] + TELEMETRY_NAMES + SERVE_NAMES)
 def test_public_signature_matches_the_jax_package(name):
     got = _names(_resolve("multigrad_tpu_torch", name))
     want = _names(_resolve("multigrad_tpu", name))
     # The port's only extra everywhere: a trailing device= (and a
-    # keyword-only device before **kwargs).
-    got = [n for n in got if n != "device" and n not in PORT_ONLY.get(
-        name, ())]
+    # keyword-only device before **kwargs); where the JAX package has a
+    # device= too (``resources.device_memory``), it is compared.
+    got = [n for n in got if (n != "device" or "device" in want)
+           and n not in PORT_ONLY.get(name, ())]
     want = [n for n in want if n not in JAX_ONLY.get(name, ())]
     assert got == want, (got, want)

@@ -25,6 +25,7 @@ def _python_files():
     yield os.path.join(REPO_ROOT, "tools", "streamed_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "posterior_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "telemetry_smf.py")
+    yield os.path.join(REPO_ROOT, "tools", "serve_smf.py")
 
 
 def _imported_roots(path):
@@ -67,6 +68,11 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.utils.diffdesi\n"
         "import multigrad_tpu_torch.telemetry\n"
         "import multigrad_tpu_torch.telemetry.report\n"
+        "import multigrad_tpu_torch.serve, multigrad_tpu_torch.serve.worker\n"
+        "import multigrad_tpu_torch.serve.wire\n"
+        "import multigrad_tpu_torch.telemetry.resources\n"
+        "import multigrad_tpu_torch.utils.lockdep\n"
+        "import multigrad_tpu_torch.utils.testing\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -104,7 +110,13 @@ def test_no_forbidden_import_in_sources():
             os.path.join("utils", "diffdesi.py"),
             *(os.path.join("telemetry", f"{m}.py") for m in (
                 "__init__", "metrics", "spans", "taps", "comm", "flight",
-                "live", "alerts", "report", "profile"))} <= names
+                "live", "alerts", "report", "profile", "tracing", "rollup",
+                "budget", "resources")),
+            *(os.path.join("serve", f"{m}.py") for m in (
+                "__init__", "queue", "robustness", "qos", "slo",
+                "compile_cache", "scheduler", "wire", "worker")),
+            "_lockdep.py", os.path.join("utils", "lockdep.py"),
+            os.path.join("utils", "testing.py")} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -123,7 +135,7 @@ def test_no_forbidden_import_in_sources():
                                    "run_lbfgs_scan", "run_multistart_lbfgs",
                                    "run_adam", "run_adam_scan",
                                    "initialize", "profiled_fit",
-                                   "measure_model_comm"])
+                                   "measure_model_comm", "build_model"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
@@ -142,6 +154,7 @@ def test_default_device_is_cuda(entry):
                                             make_smf_data, make_wprp_data,
                                             make_xi_data)
     from multigrad_tpu_torch.optim.transforms import bounds_to_arrays
+    from multigrad_tpu_torch.serve.worker import build_model
     from multigrad_tpu_torch.utils.util import resolve_device
     call = {"make_smf_data": lambda: make_smf_data(100),
             "resolve_device": resolve_device,
@@ -192,6 +205,75 @@ def test_default_device_is_cuda(entry):
             # A model that holds no tensor: the evaluation goes to the card.
             "measure_model_comm": lambda: telemetry.measure_model_comm(
                 SMFModel(aux_data={"volume": 1.0}), [-2.0, 0.2]),
+            # The worker's model: on the card unless --device says not.
+            "build_model": lambda: build_model("smf", {"num_halos": 100}),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+#: Started before anything else in a process: any import of a forbidden
+#: package raises (an optional import inside a ``try`` is refused too).
+BLOCKER = """import sys
+FORBIDDEN = {forbidden!r}
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError("the port must not import " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+"""
+
+
+def test_worker_module_run_loads_no_jax(tmp_path):
+    # python -m multigrad_tpu_torch.serve.worker, with every import of
+    # jax, optax or multigrad_tpu refused from the first line on: it
+    # comes up, serves one fit on the CPU and drains with exit 0.
+    import json
+    import select
+    import socket
+
+    from multigrad_tpu_torch.serve import FitConfig
+    from multigrad_tpu_torch.serve.wire import JsonlChannel, config_to_wire
+
+    (tmp_path / "sitecustomize.py").write_text(
+        BLOCKER.format(forbidden=FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), REPO_ROOT]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multigrad_tpu_torch.serve.worker",
+         "--device", "cpu", "--model-kwargs", '{"num_halos": 300}',
+         "--buckets", "1", "--batch-window-s", "0"],
+        cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 120)
+        line = proc.stdout.readline() if ready else ""
+        assert line.startswith("FLEET-WORKER-READY "), \
+            (line, proc.poll())
+        port = json.loads(line.split(" ", 1)[1])["port"]
+        chan = JsonlChannel(socket.create_connection(("127.0.0.1", port),
+                                                     timeout=120))
+        chan.send({"op": "submit", "rid": "r0", "guess": [-1.5, 0.4],
+                   "config": config_to_wire(FitConfig(nsteps=3))})
+        chan.send({"op": "drain"})
+        ops = []
+        while not ops or ops[-1] != "drained":
+            msg = chan.recv()
+            assert msg is not None, ops
+            if msg["op"] != "heartbeat":
+                ops.append(msg["op"])
+        assert sorted(ops[:-1]) == ["draining", "result"]
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=120)
+        err = proc.stderr.read()
+        proc.stdout.close()
+        proc.stderr.close()
+    assert "must not import" not in err, err

@@ -149,8 +149,8 @@ def test_registry_renders_as_the_jax_package():
 
 
 def test_status_resources_section_matches_jax():
-    # The gauges a resource monitor exports, written by hand (the port's
-    # monitor comes with serving): the same section, autoscaler included.
+    # The gauges a resource monitor exports, written by hand: the same
+    # section, autoscaler included.
     jt, _ = _jax()
     sinks = (LiveSink(), jt.LiveSink())
     for sink in sinks:

@@ -74,7 +74,7 @@ def use_form(form):
     with open(header, "w") as f:
         f.write(text)
     cuda_build.CSRC = type(cuda_build.CSRC)(csrc)
-    cuda_build.BUILD_DIR = type(cuda_build.BUILD_DIR)(root) / "lib"
+    cuda_build.set_build_dir(os.path.join(root, "lib"))
 
 
 def gaps(card, ref):
