@@ -169,7 +169,39 @@ order:
     this run's kernel libraries: its handshake, two submits over the
     wire (the first equal bit for bit to this process's bucket-1 fit), no
     ``nvcc``, and SIGTERM answered with ``draining`` and ``drained``,
-    exit 0.
+    exit 0;
+24. the fleet (``serve.FleetRouter``, ``serve.ChaosController``): two
+    port workers on the one card, each serving the SMF model at 1e8 halos
+    (buckets (1, 4, 16), this run's kernel libraries, no ``nvcc``),
+    phase 23's burst; once 4 requests are in flight, the worker holding
+    them is SIGKILL'd when its telemetry shows a launch of kernel 1,
+    inside its dispatch: every future settles
+    with a result, the kill is the only worker death, the requeued fits
+    run from the start on the survivor and equal solo fits here (rtol
+    1e-6), the merged trace has 0 incomplete traces and one requeue hop a
+    requeued request; fits/hour, hop medians, the largest heartbeat gap,
+    each worker's peak memory from its heartbeats and its kernel launches
+    from its telemetry (the survivor's a multiple of 201, at least 201 a
+    fit it served); then ``bench_fleet`` at 500 halos (64 requests, 20
+    steps, 16 configs, buckets (8,), window 0.25 s, ``shed_inflight=4``)
+    with 1, 2 and, unless the run is past 600 s, 4 workers: fits/hour a
+    leg, the speedup and ``host_cpus``;
+25. the joint posterior pipeline as one job (``serve.JobRunner``): scan
+    8 x 40 steps at 0.1, ensemble 8 x 120 at 0.02, Laplace, HMC (2
+    chains, 8 leapfrog steps, 40 + 40 draws, 20 + 20 when the run is past
+    800 s), the check on 16 draws, over a 2-worker fleet serving the
+    joint model at 1e8 + 1e5 halos (phase 15's, built in each worker from
+    ``multigrad_tpu_torch.models.joint:make_joint_smf_wprp``), Laplace,
+    HMC and the check on the same model here; the worker holding the
+    ensemble SIGKILL'd once its telemetry shows 20 Adam steps of it: the
+    job settles ok, every stage run
+    once, the router requeued, one complete trace holding every stage,
+    the report's ``job:`` section; the ensemble's rows against solo fits
+    here (rtol 1e-6), the Laplace artifact equal to
+    ``fisher_information`` at the best, HMC without a divergence and its
+    acceptance in [0.5, 0.99]; the best's distance to ``JOINT_TRUTH``
+    printed (phase 15 gates recovery), seconds a stage, fits/hour, and
+    the launches of the erf and pair kernels in the workers and here.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
@@ -178,7 +210,8 @@ device time per launch in its path's profiler window;
 ``launches_hmc``, ``launches_nccl``, ``launches_telemetry`` and
 ``launches_serve`` are its launches in phase 18, the ensemble and the
 polish of phase 19, phases 20 and 21, phase 22's monitored fit and phase
-23's burst), the
+23's burst; ``launches_fleet`` its launches in phase 24's workers and
+``launches_job`` phase 25's, workers and this process), the
 ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -317,6 +350,35 @@ SERVE_BURST, SERVE_STEPS, SERVE_LR, SERVE_RTOL = 20, 200, 0.01, 1e-6
 POISON_STEPS, SYNC_STEPS = 20, 5
 BENCH_SERVE_REQUESTS, BENCH_SERVE_HALOS = 64, 100_000
 BENCH_SERVE_WINDOW_S = 0.2
+# Phase 24, the fleet: FleetRouter over FLEET_WORKERS port workers on the
+# card, each serving the SMF model at 1e8 halos (buckets SERVE_BUCKETS),
+# phase 23's burst; once FLEET_KILL_INFLIGHT requests are in flight on the
+# busier worker, it is SIGKILL'd as soon as its telemetry shows a launch of
+# kernel 1, so it dies inside a dispatch.  bench_fleet at its published size (bench.py:1178-1265:
+# BENCH_FLEET_REQUESTS requests at BENCH_FLEET_HALOS halos, BENCH_FLEET_STEPS
+# steps, BENCH_FLEET_GROUP requests a config, buckets (2 x group,), window
+# BENCH_FLEET_WINDOW_S s, shed_inflight = group, heartbeats every 0.1 s
+# with a 10 s timeout), legs of 1, 2 and (time allowing) 4 workers.
+FLEET_WORKERS, FLEET_KILL_INFLIGHT = 2, 4
+BENCH_FLEET_REQUESTS, BENCH_FLEET_HALOS, BENCH_FLEET_STEPS = 64, 500, 20
+BENCH_FLEET_GROUP, BENCH_FLEET_WINDOW_S = 4, 0.25
+# Phase 25, the joint posterior pipeline as one job (bench.py:1268-1375,
+# examples/posterior_pipeline_demo.py) at phase 15's size, over a 2-worker
+# FleetRouter (buckets JOB_BUCKETS): scan JOB_SCAN = (points, steps, rate),
+# ensemble JOB_ENSEMBLE = (starts, steps, rate) within JOB_BOUNDS, Laplace,
+# HMC (2 chains, 8 leapfrog steps, JOB_HMC = (warmup, samples): cut from
+# bench's 100 + 80 for time), the check on JOB_DRAWS draws; the worker
+# holding the ensemble SIGKILL'd once its telemetry shows JOB_KILL_STEPS
+# Adam steps of it (a launch of kernel 1 a row a step).
+JOB_BOUNDS = ((-3.5, -0.5), (0.02, 1.0), (-2.5, 0.5))
+JOB_BUCKETS = (1, 4, 8)
+JOB_SCAN, JOB_ENSEMBLE = (8, 40, 0.1), (8, 120, 0.02)
+JOB_HMC, JOB_DRAWS, JOB_KILL_STEPS = (40, 40), 16, 20
+# The cuts for time, in order: bench_fleet's 4-worker leg when phase 24
+# starts after CUT_FOUR_AFTER_S s of the run, HMC's draws to JOB_HMC_CUT
+# when phase 25 starts after CUT_HMC_AFTER_S.
+CUT_FOUR_AFTER_S, CUT_HMC_AFTER_S, JOB_HMC_CUT = 600.0, 800.0, (20, 20)
+JOB_STAGES = ("scan", "ensemble", "laplace", "hmc", "check")
 
 
 def log(msg):
@@ -2030,6 +2092,456 @@ def serve_worker_check(n_halos, device, on_card, local, guesses, model):
                 p.wait()
 
 
+def worker_launches(path):
+    """A fleet worker's kernel launches as its telemetry file last logged
+    them (its ``kernel_launches`` records: the wrappers' counts, read in
+    the worker at each heartbeat and at its drain), or None."""
+    last = None
+    with open(path) as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue            # a SIGKILL'd worker's torn tail
+            if rec.get("event") == "kernel_launches":
+                last = rec["launches"]
+    return last
+
+
+def kill_once_launched(chaos, path, worker_id, more):
+    """SIGKILL ``worker_id`` once its telemetry file ``path`` shows
+    ``more`` launches of kernel 1 beyond what it shows now (0: at once);
+    the event set when it fired."""
+    def fwd():
+        return (worker_launches(path) or {}).get("erf_counts_fwd", 0)
+
+    base = fwd()
+    return chaos.when(lambda _router: fwd() >= base + more, chaos.kill,
+                      worker_id, poll_s=0.1, timeout_s=900)
+
+
+def trace_cli_lines(paths, *extra):
+    """The stdout lines of the port's ``telemetry.trace`` CLI over
+    ``paths`` (its exit code must be 0)."""
+    import contextlib
+    import io
+    from multigrad_tpu_torch.telemetry import trace as trace_cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = trace_cli.main(list(paths) + list(extra))
+    check(code == 0, f"the trace CLI exited {code}")
+    return out.getvalue().splitlines()
+
+
+def fleet_phase(device="cuda", big=BIG_HALOS, small=BENCH_FLEET_HALOS,
+                n_bench=BENCH_FLEET_REQUESTS, four=True, kill_launches=1):
+    """Phase 24: a ``FleetRouter`` of ``FLEET_WORKERS`` port workers on
+    ``device`` (all on the one card), the SMF model at ``big`` halos in
+    each, phase 23's burst; once ``FLEET_KILL_INFLIGHT`` requests are in
+    flight (``ChaosController.when_inflight``), the worker holding them
+    SIGKILL'd when its telemetry shows ``kill_launches`` launches of
+    kernel 1 (0: at once), inside its dispatch.  Every
+    future settles with a result, the kill is the only death, the
+    requeued fits equal solo fits in this process, the merged trace is
+    complete with one requeue hop a requeued request; the largest
+    heartbeat gap, each worker's peak memory and kernel launches (its
+    telemetry); then ``bench_fleet`` at ``small`` halos, 1 and 2 workers
+    and, with ``four``, 4.  On the CPU (small sizes) it rehearses the same
+    checks, the launch counts aside."""
+    import threading
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.models import SMFModel, make_smf_data
+    from multigrad_tpu_torch.serve import (ChaosController, FitConfig,
+                                           FleetRouter, cache_entries)
+    from multigrad_tpu_torch.telemetry import trace as trace_cli
+    from multigrad_tpu_torch.telemetry.aggregate import merge_traces
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    config = FitConfig(nsteps=SERVE_STEPS, learning_rate=SERVE_LR)
+    guesses = serve_guesses(SERVE_BURST)
+    libs = cache_entries()
+
+    # 1. the fleet at the main path's width, a SIGKILL mid-burst --------
+    t0 = time.perf_counter()
+    router = FleetRouter(n_workers=FLEET_WORKERS, model="smf",
+                         model_kwargs={"num_halos": big}, device=device,
+                         buckets=SERVE_BUCKETS, chaos=True,
+                         base_dir=os.path.join(tmp, "burst"))
+    spawn_s = time.perf_counter() - t0
+    gaps = {w.id: 0.0 for w in router.workers}
+    stop = threading.Event()
+
+    def watch_heartbeats():
+        while not stop.wait(0.05):
+            now = time.time()
+            for w in router.workers:
+                if w.state == "up":
+                    gaps[w.id] = max(gaps[w.id], now - w.last_heartbeat)
+
+    watcher = threading.Thread(target=watch_heartbeats, daemon=True,
+                               name="chip-smoke-heartbeat-gaps")
+    chaos = ChaosController(router)
+    victim = {}
+
+    def kill_busier():
+        w = max(router.workers, key=lambda w: len(w.inflight))
+        victim.update(id=w.id, inflight=len(w.inflight))
+        kill_once_launched(chaos, w.telemetry_path, w.id, kill_launches)
+
+    try:
+        watcher.start()
+        t0 = time.perf_counter()
+        futs = [router.submit(g, config=config) for g in guesses]
+        fired = chaos.when_inflight(FLEET_KILL_INFLIGHT, kill_busier,
+                                    timeout_s=300)
+        settled = []
+        for f in futs:
+            try:
+                settled.append(f.result(timeout=900))
+            except Exception as e:      # typed: settled, not lost
+                settled.append(e)
+        burst_s = time.perf_counter() - t0
+        stop.set()
+        stats = router.stats
+        kills = [e for e in chaos.events if e["kind"] == "kill"]
+        trace_paths = router.trace_paths
+        telemetry = {w.id: w.telemetry_path for w in router.workers}
+    finally:
+        stop.set()
+        chaos.close()
+        router.close()
+    results = [r for r in settled if not isinstance(r, Exception)]
+    requeued = [i for i, f in enumerate(futs) if f.requeues]
+    survivor = next(w for w in telemetry if w != victim.get("id"))
+    fph = SERVE_BURST / burst_s * 3600.0
+    hops = {}
+    for h in ("route", "rpc_send", "queue_wait", "dispatch",
+              "adam_segments", "finalize", "result_return", "requeue"):
+        got = [r.hops[h] for r in results if h in (r.hops or {})]
+        hops[h] = statistics.median(got) if got else None
+    peaks = {wid: (w["resources"] or {}).get("device_peak_bytes")
+             for wid, w in stats["workers"].items()}
+    builds = {wid: (w["resources"] or {}).get("compile_misses")
+              for wid, w in stats["workers"].items()}
+    launches = {wid: worker_launches(path)
+                for wid, path in telemetry.items()}
+    log(f"fleet of {FLEET_WORKERS} on {device} at {big:,} halos, buckets "
+        f"{SERVE_BUCKETS}: started in {spawn_s:.2f} s; burst of "
+        f"{SERVE_BURST} x {SERVE_STEPS} steps in {burst_s:.4f} s = "
+        f"{fph:.1f} fits/hour (the router's own "
+        f"{stats['fits_per_hour']}); kill {victim} after "
+        f"{kill_launches} launch(es) (fired {fired.is_set()}); settled {len(settled)} of "
+        f"{SERVE_BURST}, results {len(results)}, errors "
+        f"{[repr(r) for r in settled if isinstance(r, Exception)]}; stats "
+        f"requeued {stats.get('requeued', 0)}, worker_deaths "
+        f"{stats.get('worker_deaths', 0)}, rejected "
+        f"{stats.get('rejected', 0)}, completed {stats.get('completed')}; "
+        f"served by {sorted(set(r.worker for r in results))}; hop medians "
+        f"(s) {hops}; largest heartbeat gap (s) {gaps}; peak device bytes "
+        f"from heartbeats {peaks}; kernel libraries built in the workers "
+        f"{builds}; launches (worker telemetry) survivor {survivor} "
+        f"{launches[survivor]}, killed {victim.get('id')} "
+        f"{launches.get(victim.get('id'))}")
+    check(len(results) == SERVE_BURST, "a future settled with an error")
+    check(fired.is_set() and len(kills) == 1
+          and stats.get("worker_deaths") == len(kills),
+          f"worker_deaths {stats.get('worker_deaths')} against the kills "
+          f"{kills}: a false death, or no kill")
+    check(len(requeued) >= 1, f"nothing was requeued: {stats}")
+    check(all(results[i].worker == survivor for i in requeued),
+          "a requeued fit was not served by the survivor")
+    if on_card:
+        check(all(b == 0 for b in builds.values())
+              and cache_entries() == libs,
+              f"a worker ran nvcc: {builds}")
+        served = sum(r.worker == survivor for r in results)
+        got = launches[survivor]
+        check(got is not None and got["erf_counts_fwd"]
+              == got["erf_counts_bwd"]
+              and got["erf_counts_fwd"] % (SERVE_STEPS + 1) == 0
+              and got["erf_counts_fwd"] >= served * (SERVE_STEPS + 1)
+              and not any(v for k, v in got.items()
+                          if not k.startswith("erf_counts_")
+                          or k.endswith("_vec")),
+              f"the survivor's launches {got} for {served} fits")
+
+    # 2. the merged trace ------------------------------------------------
+    by_trace = merge_traces(trace_paths)
+    summaries = [trace_cli.trace_summary(f.trace_id, by_trace[f.trace_id])
+                 for f in futs]
+    lines = trace_cli_lines(trace_paths, "--slowest", "1")
+    log(f"merged trace over {len(trace_paths)} files: {lines[0]}; the "
+        f"requeued requests' hops "
+        f"{sorted(set(len(summaries[i]['requeues']) for i in requeued))}"
+        f"; coverage min "
+        f"{min(s['coverage'] or 0.0 for s in summaries):.4f}")
+    check(all(s["complete"] and s["outcome"] == "ok" for s in summaries),
+          "an incomplete trace")
+    check(" 0 incomplete" in lines[0], f"trace CLI: {lines[0]}")
+    check(all(len(summaries[i]["requeues"]) == 1
+              and summaries[i]["requeues"][0]["from"] == victim["id"]
+              and summaries[i]["requeues"][0]["to"] == survivor
+              for i in requeued), "a requeued request's requeue hops")
+
+    # 3. the requeued fits against solo fits in this process -------------
+    model = SMFModel(aux_data=make_smf_data(big, device=device))
+    solo = {}
+    for i in requeued:
+        ref = model.run_adam(guess=guesses[i], nsteps=SERVE_STEPS,
+                             learning_rate=SERVE_LR,
+                             progress=False).cpu().numpy()
+        solo[i] = (np.array_equal(results[i].traj, ref),
+                   np.allclose(results[i].traj, ref, rtol=SERVE_RTOL,
+                               atol=0))
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"the {len(requeued)} requeued fits against solo fits (bit-"
+        f"identical: {sum(b for b, _ in solo.values())}, within rtol "
+        f"{SERVE_RTOL}: {sum(ok for _, ok in solo.values())})")
+    check(all(ok for _, ok in solo.values()),
+          f"requeued fits against solo fits: {solo}")
+
+    # 4. bench_fleet at its published size -------------------------------
+    rng = np.random.default_rng(0)
+    bench_guesses = np.column_stack([rng.uniform(-2.3, -1.5, n_bench),
+                                     rng.uniform(0.35, 0.6, n_bench)])
+    n_groups = max(1, n_bench // BENCH_FLEET_GROUP)
+    configs = [FitConfig(nsteps=BENCH_FLEET_STEPS, learning_rate=0.03,
+                         randkey=1000 + g) for g in range(n_groups)]
+    legs = {}
+    for n in (1, 2, 4) if four else (1, 2):
+        leg_router = FleetRouter(
+            n_workers=n, model_kwargs={"num_halos": small}, device=device,
+            buckets=(2 * BENCH_FLEET_GROUP,),
+            batch_window_s=BENCH_FLEET_WINDOW_S,
+            shed_inflight=BENCH_FLEET_GROUP, heartbeat_s=0.1,
+            heartbeat_timeout_s=10.0,
+            base_dir=os.path.join(tmp, f"bench{n}"))
+
+        def burst():
+            fs = [leg_router.submit(
+                      bench_guesses[i],
+                      config=configs[min(i // BENCH_FLEET_GROUP,
+                                         n_groups - 1)])
+                  for i in range(n_bench)]
+            return [f.result(timeout=900) for f in fs]
+
+        try:
+            burst()                     # warm
+            t0 = time.perf_counter()
+            out = burst()
+            dt = time.perf_counter() - t0
+            st = leg_router.stats
+        finally:
+            leg_router.close(drain=False)
+        check(all(np.isfinite(r.loss) for r in out),
+              f"bench_fleet {n} workers: a non-finite loss")
+        legs[n] = {"fits_per_hour": n_bench / dt * 3600.0, "wall_s": dt,
+                   "requeued": st.get("requeued", 0),
+                   "rejected": st.get("rejected", 0),
+                   "worker_deaths": st.get("worker_deaths", 0)}
+        legs[n]["speedup"] = legs[n]["fits_per_hour"] \
+            / legs[1]["fits_per_hour"]
+    log(f"bench_fleet at {small:,} halos, {n_bench} requests x "
+        f"{BENCH_FLEET_STEPS} steps, {n_groups} configs, buckets "
+        f"({2 * BENCH_FLEET_GROUP},), window {BENCH_FLEET_WINDOW_S} s, "
+        f"shed_inflight {BENCH_FLEET_GROUP}: {legs}; host_cpus "
+        f"{os.cpu_count()}; the 4-worker leg "
+        f"{'run' if four else 'cut for time'}")
+    return dict(spawn_s=spawn_s, burst_s=burst_s, fits_per_hour=fph,
+                hops=hops, gaps=gaps, peaks=peaks, builds=builds,
+                victim=victim, survivor=survivor,
+                requeued=stats.get("requeued", 0),
+                worker_deaths=stats.get("worker_deaths", 0),
+                rejected=stats.get("rejected", 0), launches=launches,
+                solo=solo, trace=lines[0], bench=legs,
+                host_cpus=os.cpu_count())
+
+
+def job_phase(reset_launches, read_launches, device="cuda",
+              wp=PAIR_HALOS, smf=BIG_HALOS, hmc=JOB_HMC,
+              kill_steps=JOB_KILL_STEPS, wprp_kwargs=None):
+    """Phase 25: ``bench_posterior_pipeline``'s job (scan, ensemble,
+    Laplace, HMC, check) on the joint SMF + wp(rp) model at ``smf`` +
+    ``wp`` halos, as ONE job: its fits over a 2-worker ``FleetRouter``
+    (the model built in each worker from the factory path), its Laplace,
+    HMC and check on the same model in this process; the worker holding
+    the ensemble SIGKILL'd once its telemetry shows ``kill_steps`` Adam
+    steps of it (0: at once).  The job settles ok
+    with every stage run once, one complete trace, the report's ``job:``
+    section; the ensemble's rows equal solo fits here, the Laplace
+    artifact equals ``fisher_information`` at its best, HMC without a
+    divergence and its acceptance in [0.5, 0.99].  ``wprp_kwargs``
+    (phase 15's box and pimax by default) go to the wp(rp) mock."""
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.inference import fisher_information
+    from multigrad_tpu_torch.models import JOINT_TRUTH, make_joint_smf_wprp
+    from multigrad_tpu_torch.serve import (ChaosController, EnsembleStage,
+                                           FleetRouter, HmcStage, Job,
+                                           JobRunner, LaplaceStage,
+                                           PredictiveCheckStage, SweepStage)
+    from multigrad_tpu_torch.telemetry import JsonlSink, MetricsLogger
+    from multigrad_tpu_torch.telemetry import report as report_cli
+    from multigrad_tpu_torch.telemetry import trace as trace_cli
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_job_")
+    kwargs = dict(num_halos=wp, smf_num_halos=smf, device=device,
+                  wprp_kwargs=(dict(box_size=PAIR_BOX, pimax=PAIR_PIMAX)
+                               if wprp_kwargs is None else wprp_kwargs))
+    (n_points, scan_steps, scan_lr) = JOB_SCAN
+    (n_starts, ens_steps, ens_lr) = JOB_ENSEMBLE
+    job = Job(job_id="job-phase25", stages=(
+        SweepStage("scan", n_points=n_points, nsteps=scan_steps,
+                   learning_rate=scan_lr, param_bounds=JOB_BOUNDS),
+        EnsembleStage("ensemble", deps=("scan",), n_starts=n_starts,
+                      nsteps=ens_steps, learning_rate=ens_lr,
+                      param_bounds=JOB_BOUNDS),
+        LaplaceStage("laplace", deps=("ensemble",)),
+        HmcStage("hmc", deps=("laplace",), num_warmup=hmc[0],
+                 num_samples=hmc[1], num_chains=2),
+        PredictiveCheckStage("check", deps=("hmc",), max_draws=JOB_DRAWS)))
+    t0 = time.perf_counter()
+    router = FleetRouter(
+        n_workers=2, model="multigrad_tpu_torch.models.joint:"
+        "make_joint_smf_wprp", model_kwargs=kwargs, device=device,
+        buckets=JOB_BUCKETS, base_dir=os.path.join(tmp, "fleet"))
+    spawn_s = time.perf_counter() - t0
+    local = make_joint_smf_wprp(**kwargs)
+    tel_path = os.path.join(tmp, "job.jsonl")
+    logger = MetricsLogger(JsonlSink(tel_path))
+    chaos = ChaosController(router)
+    victim = {}
+
+    def holds_ensemble(r):
+        for w in r.workers:
+            if w.state == "up" and sum(
+                    q.config.stage == "ensemble"
+                    for q in list(w.inflight.values())) >= n_starts:
+                victim["id"], victim["path"] = w.id, w.telemetry_path
+                return True
+        return False
+
+    def kill_holder():
+        kill_once_launched(chaos, victim.pop("path"), victim["id"],
+                           n_starts * kill_steps)
+
+    try:
+        fired = chaos.when(holds_ensemble, kill_holder, timeout_s=900)
+        if on_card:
+            torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = JobRunner(router, model=local, telemetry=logger).run(
+            job, timeout=1200)
+        job_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.synchronize()
+        local_launches = read_launches()
+        stats = router.stats
+        kills = [e for e in chaos.events if e["kind"] == "kill"]
+        trace_paths = router.trace_paths
+        telemetry = {w.id: w.telemetry_path for w in router.workers}
+    finally:
+        chaos.close()
+        router.close()
+        logger.close()
+    stages = {n: (r.outcome, r.attempts, r.elapsed_s)
+              for n, r in result.stages.items()}
+    launches = {wid: worker_launches(p) for wid, p in telemetry.items()}
+    total = dict(local_launches)
+    for got in launches.values():
+        for k, v in (got or {}).items():
+            total[k] = total.get(k, 0) + v
+    ens, scan = result.artifact("ensemble") or {}, \
+        result.artifact("scan") or {}
+    best = np.asarray(ens.get("best_params", [np.nan] * 3))
+    n_fits = n_points + n_starts
+    log(f"job over a 2-worker fleet on {device}, the joint model at "
+        f"{smf:,} + {wp:,} halos: workers started in {spawn_s:.2f} s; job "
+        f"{result.outcomes()} in {job_s:.4f} s (ok {result.ok}) = "
+        f"{n_fits / job_s * 3600.0:.1f} fits/hour; stages (outcome, "
+        f"attempts, s) {stages}; kill {victim} after {kill_steps} steps "
+        f"of the ensemble (fired {fired.is_set()}); router requeued "
+        f"{stats.get('requeued', 0)}, worker_deaths "
+        f"{stats.get('worker_deaths', 0)}; the ensemble best {best.tolist()}"
+        f" is {np.abs(best - JOINT_TRUTH).tolist()} from JOINT_TRUTH; "
+        f"launches: workers {launches}, this process {local_launches}")
+    check(result.ok and result.outcomes() == dict.fromkeys(JOB_STAGES,
+                                                           "ok"),
+          f"the job: {stages}")
+    check(all(a == 1 for _, a, _ in stages.values()),
+          f"a stage ran twice: {stages}")
+    check(fired.is_set() and len(kills) == 1
+          and stats.get("worker_deaths") == 1
+          and stats.get("requeued", 0) >= 1,
+          f"the kill mid-ensemble: {kills}, {stats}")
+
+    # the one trace and the report's job: section ------------------------
+    by_trace = trace_cli.group_traces(trace_cli.load_spans(trace_paths))
+    summary = trace_cli.trace_summary(result.trace_id,
+                                      by_trace[result.trace_id])
+    waterfall = trace_cli.render_waterfall(result.trace_id,
+                                           by_trace[result.trace_id])
+    rendered = report_cli.render(report_cli.summarize(
+        report_cli.load_records(tel_path)))
+    section = rendered[rendered.index("job:"):].splitlines() \
+        if "job:" in rendered else []
+    log(f"job trace: {trace_cli.render_summary_line(summary)}; stages "
+        f"{sorted(summary['stages'])}; report: {section}")
+    check(summary["complete"] and summary["root"]["name"] == "job"
+          and set(summary["stages"]) == set(JOB_STAGES)
+          and all(f"stage {s}" in waterfall for s in JOB_STAGES),
+          f"the job's trace: {summary}")
+    check(f"job: {job.job_id}" in rendered and "stage hmc: ok" in rendered
+          and "check check: ok" in rendered,
+          f"the report's job: section: {section}")
+
+    # stage artifacts against this process -------------------------------
+    inits = np.asarray(scan["params"])[np.argsort(scan["losses"])[:n_starts]]
+    rows = {}
+    for k, (init, row) in enumerate(zip(inits, ens["params"])):
+        ref = local.run_adam(guess=init, nsteps=ens_steps,
+                             learning_rate=ens_lr, param_bounds=JOB_BOUNDS,
+                             progress=False)[-1].cpu().numpy()
+        rows[k] = (bool(np.array_equal(np.float32(row), ref)),
+                   bool(np.allclose(np.float32(row), ref, rtol=SERVE_RTOL,
+                                    atol=0)))
+    fisher = fisher_information(local, best).fisher.double().cpu()
+    laplace = np.asarray(result.artifact("laplace")["fisher"])
+    hmc_art = result.artifact("hmc")
+    accept = hmc_art["accept_prob"]
+    log(f"the ensemble's rows against solo fits (bit-identical, within "
+        f"rtol {SERVE_RTOL}): {rows}; Laplace against fisher_information "
+        f"at the best: bit-equal {np.array_equal(laplace, fisher.numpy())}"
+        f", max diff {np.abs(laplace - fisher.numpy()).max():.3e}; HMC "
+        f"{hmc[0]} + {hmc[1]} draws x 2 chains: divergences "
+        f"{hmc_art['divergences']}, acceptance {accept}, rhat "
+        f"{hmc_art['rhat']}; the check {result.artifact('check')}")
+    check(all(ok for _, ok in rows.values()),
+          f"the ensemble's rows against solo fits: {rows}")
+    check(np.array_equal(laplace, fisher.numpy()),
+          "the Laplace artifact differs from fisher_information")
+    check(sum(hmc_art["divergences"]) == 0
+          and all(0.5 <= a <= 0.99 for a in accept),
+          f"HMC: divergences {hmc_art['divergences']}, acceptance {accept}")
+    if on_card:
+        fits_rows = n_points * (scan_steps + 1) + n_starts * (ens_steps + 1)
+        check(all(total[k] >= fits_rows for k in (
+                  "erf_counts_fwd", "erf_counts_bwd", "pair_counts_fwd",
+                  "pair_rowgrad")) and not total["pair_counts_bwd"],
+              f"the job's launches {total}")
+    return dict(spawn_s=spawn_s, job_s=job_s, stages=stages,
+                fits_per_hour=n_fits / job_s * 3600.0, victim=victim,
+                requeued=stats.get("requeued", 0),
+                distance=np.abs(best - JOINT_TRUTH).tolist(),
+                launches=total, worker_launches=launches,
+                local_launches=local_launches, rows=rows, accept=accept,
+                trace=trace_cli.render_summary_line(summary))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3154,6 +3666,21 @@ def main():
     serve = serving_phase(reset_launches, read_launches, wrappers)
     torch.cuda.empty_cache()
 
+    # 24. the fleet: workers sharing the card, a SIGKILL mid-burst --------
+    elapsed = time.perf_counter() - t_start
+    log(f"[{elapsed:.0f} s] phase 24")
+    fleet = fleet_phase(four=elapsed < CUT_FOUR_AFTER_S)
+    torch.cuda.empty_cache()
+
+    # 25. the joint posterior pipeline as one job ------------------------
+    elapsed = time.perf_counter() - t_start
+    log(f"[{elapsed:.0f} s] phase 25")
+    hmc_draws = JOB_HMC if elapsed < CUT_HMC_AFTER_S else JOB_HMC_CUT
+    if hmc_draws != JOB_HMC:
+        log(f"phase 25: HMC cut to {hmc_draws} draws for time")
+    job = job_phase(reset_launches, read_launches, hmc=hmc_draws)
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
@@ -3319,9 +3846,21 @@ def main():
                  launches_hmc=hmc["launches"][k["name"]],
                  launches_nccl=nccl["launches"][k["name"]],
                  launches_telemetry=monitored["launches"][k["name"]],
-                 launches_serve=serve["launches"][k["name"]])
+                 launches_serve=serve["launches"][k["name"]],
+                 # Phase 24: the fleet's workers' launches (their
+                 # telemetry); phase 25: the job's, its workers' and
+                 # this process's (Laplace, HMC, the check).
+                 launches_fleet=sum(w[k["name"]] for w in
+                                    fleet["launches"].values() if w),
+                 launches_job=job["launches"][k["name"]])
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
+    on_path = {"launches_fleet": ("erf_counts_fwd", "erf_counts_bwd"),
+               "launches_job": ("erf_counts_fwd", "erf_counts_bwd",
+                                "pair_counts_fwd", "pair_rowgrad")}
+    check(all(k[key] > 0 for key, names in on_path.items()
+              for k in kernels if k["name"] in names),
+          f"a kernel of phase 24 or 25 was not launched: {kernels}")
     log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
         "at 1e8 + 1e5 halos")
     log("streamed SMF at 1e8: " + ", ".join(
@@ -3368,6 +3907,20 @@ def main():
         f"sequential {serve['bench']['sequential']['fits_per_hour']:.1f} "
         f"fits/hour = {serve['ratio']:.4f}; worker dispatch hops "
         f"{serve['worker']['dispatch_ms']} ms")
+    log(f"fleet: {FLEET_WORKERS} workers on one card started in "
+        f"{fleet['spawn_s']:.2f} s; burst at 1e8 "
+        f"{fleet['fits_per_hour']:.1f} fits/hour across a SIGKILL of "
+        f"{fleet['victim']} (requeued {fleet['requeued']}, deaths "
+        f"{fleet['worker_deaths']}); largest heartbeat gaps "
+        f"{fleet['gaps']} s; peaks {fleet['peaks']} B; bench_fleet "
+        + ", ".join(f"{n} workers {v['fits_per_hour']:.1f} fits/hour "
+                    f"(x{v['speedup']:.3f})"
+                    for n, v in fleet["bench"].items())
+        + f", host_cpus {fleet['host_cpus']}")
+    log(f"job: the joint pipeline in {job['job_s']:.4f} s "
+        f"({job['fits_per_hour']:.1f} fits/hour), stages {job['stages']}, "
+        f"requeued {job['requeued']}, the ensemble best "
+        f"{job['distance']} from JOINT_TRUTH")
     log(f"profiler windows: {windows().windows}, run again "
         f"{windows().retries} times for a lost lead-in")
     log(f"done in {time.perf_counter() - t_start:.0f} s")

@@ -24,8 +24,11 @@ off the card without a wait, a NaN sentinel and postmortem bundles,
 comm bytes counted, a live HTTP endpoint, alert rules and
 ``torch.profiler`` fit profiles.  ``serve`` serves fits: a
 ``FitScheduler`` packs many tenants' requests into batched buckets on
-the card, and ``python -m multigrad_tpu_torch.serve.worker`` puts one
-behind the JAX package's wire.  The hot
+the card, ``python -m multigrad_tpu_torch.serve.worker`` puts one
+behind the JAX package's wire, a ``FleetRouter`` routes over several
+such workers with requeue on a lost one, and a ``JobRunner`` runs a
+whole posterior pipeline (scan, ensemble, Laplace, HMC, check) as one
+job.  The hot
 op, the erf-CDF binned counts of the SMF and galaxy–halo models, runs as
 hand-written CUDA kernels on CUDA tensors and as their plain PyTorch
 versions on CPU tensors: the dense counts with a scalar or a
@@ -71,9 +74,7 @@ from .telemetry import (AlertEngine, CommCounter, FlightRecorder,  # noqa
                         MetricsLogger, ScalarTap, measure_model_comm,
                         profiled_fit, run_record)
 from . import serve  # noqa: F401
-from .serve import (FitConfig, FitFuture, FitResult,  # noqa
-                    FitScheduler, enable_compile_cache,
-                    warmup_buckets)
+from .serve import *  # noqa: F401,F403  (serve.__all__)
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
@@ -96,7 +97,6 @@ __all__ = [
     "CommCounter", "Heartbeat", "measure_model_comm", "run_record",
     "FlightRecorder", "FlightRecorderTripped", "profiled_fit",
     "LiveMetrics", "LiveServer", "AlertEngine",
-    "serve", "FitScheduler", "FitConfig", "FitFuture", "FitResult",
-    "enable_compile_cache", "warmup_buckets",
+    "serve", *serve.__all__,
     "__version__",
 ]

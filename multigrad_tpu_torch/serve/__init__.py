@@ -1,5 +1,5 @@
 """Fit-fleet serving layer: multi-tenant batched fits as a service
-(port of :mod:`multigrad_tpu.serve`, its single-process half).
+(port of :mod:`multigrad_tpu.serve`).
 
 The paper's core identity makes the *marginal* cost of one more fit
 tiny — sumstats and gradients cost O(|sumstats| + |params|) in
@@ -28,9 +28,20 @@ the repo's hand-driven fits into sustained throughput on the card:
   errored future (:class:`FitFailed`), with one retry on a fresh
   bucket; deadline timeouts (:class:`FitDeadlineExceeded`) and
   graceful drain on shutdown.
-* :mod:`.worker` + :mod:`.wire` — one scheduler process behind the
-  JSONL wire (``python -m multigrad_tpu_torch.serve.worker``), the JAX
-  package's protocol byte for byte, so a JAX router can drive it.
+* :mod:`.fleet` + :mod:`.worker` + :mod:`.wire` — the horizontal
+  dimension: :class:`FleetRouter` shards config traffic across N worker
+  *processes* (``python -m multigrad_tpu_torch.serve.worker``, each on
+  its ``device=``; workers sharing one card each hold a CUDA context)
+  with config-affinity routing over the shared kernel-library
+  directory, heartbeat health tracking, load shedding / work stealing
+  (:class:`FleetSaturatedError`), and preemption-resilient draining — a
+  killed worker's in-flight requests re-enqueue on survivors (requeue
+  history on the future; :class:`WorkerLostError` when the fleet truly
+  cannot finish one).  The wire is the JAX package's protocol byte for
+  byte, so a JAX router can drive a port worker.
+* :mod:`.chaos` — :class:`ChaosController`: SIGKILL / SIGTERM /
+  SIGSTOP, forced queue-full, stalls — injected at configurable
+  points, proving "every future resolves" under fire.
 * :mod:`.qos` + :mod:`.slo` — the multi-tenant scheduling dimension:
   a :class:`QosTag` (tenant, priority class, optional SLO deadline)
   rides each request — deliberately NOT part of the batchability
@@ -41,11 +52,14 @@ the repo's hand-driven fits into sustained throughput on the card:
   buckets deadline-first (EDF).  :class:`SloMonitor` states latency
   objectives declaratively (``"p95 < 2 s for interactive"``),
   evaluates them live, and exports ``multigrad_qos_*`` gauges.
-
-Not ported yet (ROADMAP.md Queue 1 item 8, its second slice): the
-fleet router over several workers (``FleetRouter``, ``WorkerHandle``,
-``WorkerLostError``, ``FleetSaturatedError``), ``ChaosController``, and
-the job pipeline (``jobs``/``stages``).
+* :mod:`.jobs` + :mod:`.stages` — the pipeline dimension:
+  :class:`JobRunner` runs a whole posterior pipeline submitted as
+  ONE :class:`Job` — a typed DAG of stages (sweep → ensemble →
+  Laplace → HMC → predictive checks) — fanning fit-type stages out
+  through the scheduler/fleet, running host-side inference stages
+  locally on the model's device, flowing small JSON artifacts between
+  stages, tracing the whole job as one waterfall, and checkpointing at
+  stage boundaries so a lost worker costs a stage, not the job.
 
 Minimal service::
 
@@ -74,6 +88,14 @@ from .qos import (FitShedError, QosPolicy, QosTag,  # noqa: F401
 from .slo import Slo, SloMonitor, parse_slo  # noqa: F401
 from .scheduler import FitScheduler  # noqa: F401
 from .robustness import nonfinite_rows  # noqa: F401
+from .fleet import (FleetRouter, FleetSaturatedError,  # noqa: F401
+                    WorkerHandle, WorkerLostError)
+from .chaos import ChaosController  # noqa: F401
+from .stages import (EnsembleStage, FitStage, HmcStage,  # noqa: F401
+                     LaplaceStage, PredictiveCheckStage, Stage,
+                     StageRuntime, SweepStage)
+from .jobs import (Job, JobFailed, JobFuture, JobResult,  # noqa: F401
+                   JobRunner, StageResult)
 
 __all__ = [
     "FitScheduler", "FitConfig", "FitRequest", "FitFuture",
@@ -81,6 +103,12 @@ __all__ = [
     "FitDeadlineExceeded", "FitFailed", "FitOOMError",
     "enable_compile_cache", "cache_entries", "warmup_buckets",
     "DEFAULT_BUCKETS", "nonfinite_rows",
+    "FleetRouter", "WorkerHandle", "WorkerLostError",
+    "FleetSaturatedError", "ChaosController",
     "QosTag", "QosPolicy", "TenantQuotaError", "FitShedError",
     "Slo", "SloMonitor", "parse_slo",
+    "Job", "JobRunner", "JobFuture", "JobResult", "JobFailed",
+    "StageResult", "Stage", "StageRuntime", "FitStage",
+    "SweepStage", "EnsembleStage", "LaplaceStage", "HmcStage",
+    "PredictiveCheckStage",
 ]

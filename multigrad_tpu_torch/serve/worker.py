@@ -33,11 +33,18 @@ lives on; ``cpu`` for tests); ``--compile-cache DIR`` is the directory
 the kernel libraries are loaded from (and built into when missing,
 :func:`~multigrad_tpu_torch.serve.compile_cache.enable_compile_cache`).
 
-With ``--chaos``, the worker honors fault-injection ops (the JAX
-package's ``ChaosController`` sends them; the port's comes with the
-fleet): forced queue-full rejects, submit-path stalls, and heartbeat
+With ``--chaos``, the worker honors fault-injection ops (sent by the
+:class:`~multigrad_tpu_torch.serve.chaos.ChaosController` of either
+package): forced queue-full rejects, submit-path stalls, and heartbeat
 pauses — deterministic handles on the failure modes the fleet must
 survive.
+
+With ``--telemetry``, the heartbeat thread also logs a
+``kernel_launches`` record whenever this process's kernel launches have
+changed since the last one: each CUDA kernel wrapper's ``launches``
+count (:func:`kernel_launches`), read and never reset.  The file is
+written a line at a time, so a SIGKILL'd worker's launches survive it
+up to its last heartbeat.
 """
 from __future__ import annotations
 
@@ -50,6 +57,24 @@ import threading
 import time
 
 __all__ = ["build_model", "main"]
+
+
+def kernel_launches() -> dict:
+    """This process's launches so far of each CUDA kernel wrapper, by
+    kernel name (the ``launches`` count a wrapper adds one to where it
+    launches its kernel; plain versions on CPU tensors add nothing)."""
+    from multigrad_tpu_torch.ops import erf_kernels as ek
+    from multigrad_tpu_torch.ops import fused_kernels as fk
+    from multigrad_tpu_torch.ops import pair_kernels as pk
+    return {"erf_counts_fwd": ek.erf_counts_fwd_cuda.launches,
+            "erf_counts_bwd": ek.erf_counts_bwd_cuda.launches,
+            "erf_counts_fwd_vec": ek.erf_counts_fwd_vec_cuda.launches,
+            "erf_counts_bwd_vec": ek.erf_counts_bwd_vec_cuda.launches,
+            "fused_counts_fwd": fk.fused_counts_fwd_cuda.launches,
+            "fused_counts_bwd": fk.fused_counts_bwd_cuda.launches,
+            "pair_counts_fwd": pk.pair_counts_fwd_cuda.launches,
+            "pair_rowgrad": pk.pair_rowgrad_cuda.launches,
+            "pair_counts_bwd": pk.pair_counts_bwd_cuda.launches}
 
 
 def build_model(name: str, kwargs: dict, device=None):
@@ -207,6 +232,13 @@ def main(argv=None) -> int:
                 ("submitted", "completed", "failed", "expired",
                  "cancelled", "retried", "dispatches")}
 
+    def log_launches(last: dict) -> dict:
+        counts = kernel_launches()
+        if logger is not None and counts != last:
+            logger.log("kernel_launches", worker=args.worker_id,
+                       launches=counts)
+        return counts
+
     def begin_drain(reason: str):
         if state["draining"]:
             return
@@ -222,6 +254,7 @@ def main(argv=None) -> int:
             deadline = time.time() + 120
             while inflight and time.time() < deadline:
                 time.sleep(0.02)
+            log_launches({})
             _send({"op": "drained", "worker": args.worker_id,
                    "stats": _compact_stats()})
             _shutdown(0)
@@ -391,7 +424,9 @@ def main(argv=None) -> int:
                          name=f"mgt-worker-waiter-{rid}").start()
 
     def heartbeat_loop():
+        launches = {}
         while True:
+            launches = log_launches(launches)
             if time.time() >= chaos["heartbeat_pause_until"]:
                 # The compact resource snapshot rides every
                 # heartbeat (known-keys codec; the key stays off the

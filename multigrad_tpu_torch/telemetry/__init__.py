@@ -47,10 +47,19 @@ The serving layer's telemetry (:mod:`multigrad_tpu_torch.serve`):
 * :mod:`.budget` — :class:`SloBudget` error budgets over the declared
   SLOs and the :class:`BurnRateAlert` rule.
 
+The fleet-watching CLIs (stdlib copies of the JAX package's):
+
+* :mod:`.aggregate` — cross-rank JSONL merge, span skew and stragglers
+  (``python -m multigrad_tpu_torch.telemetry.aggregate rank*.jsonl``,
+  the ``/fleet`` view of :class:`LiveServer` ``rank_paths=``);
+  :func:`~.aggregate.gather_to_rank0` over ``torch.distributed``.
+* :mod:`.trace` — request waterfalls from per-process trace JSONLs.
+* :mod:`.dashboard` — the streaming terminal dashboard of a JSONL.
+* :mod:`.regress` — the noise-aware bench regression gate.
+* :mod:`.top` — per-worker resource columns of a fleet.
+
 Not ported yet: the cost model (ROADMAP Queue 1 item 10, with
-``analysis/``), and the fleet-watching modules ``aggregate``,
-``dashboard``, ``regress``, ``top`` and ``trace`` (item 8's second
-slice).
+``analysis/``).
 
 The stdlib-only modules of the JAX package are copied, not imported:
 ``import multigrad_tpu.<anything>`` runs ``multigrad_tpu/__init__``,

@@ -1,6 +1,5 @@
 """Live observability: in-process metrics registry + HTTP endpoint (a
-copy of :mod:`multigrad_tpu.telemetry.live`; the cross-rank ``/fleet``
-view waits for the port's ``aggregate``, ROADMAP Queue 1 item 8).
+copy of :mod:`multigrad_tpu.telemetry.live`).
 
 Everything telemetry did before this module is *offline*: JSONL files
 read back by :mod:`.report` after the fact, postmortems dumped after a
@@ -27,7 +26,11 @@ and stream counters are per-process facts — each process that
 constructs a :class:`LiveServer` serves its *own* stream (a non-zero
 ``port`` is offset by the process index of
 :mod:`multigrad_tpu_torch.parallel.distributed` so processes on one
-host never collide).
+host never collide), and rank 0 can additionally serve the cross-rank
+fleet view (``/fleet``) by pointing ``rank_paths=`` at the per-rank JSONL
+files; the aggregation itself is
+:func:`multigrad_tpu_torch.telemetry.aggregate.aggregate` (merge, span
+skew, stragglers).
 
 Wiring::
 
@@ -858,10 +861,11 @@ class LiveServer:
     :class:`~multigrad_tpu_torch.telemetry.MetricsLogger`.
 
     Endpoints: ``/metrics`` (Prometheus text exposition 0.0.4),
-    ``/status`` (JSON, see :meth:`LiveSink.status`) and ``/healthz``
-    (200 "ok").  ``rank_paths`` (the JAX package's ``/fleet`` view
-    over per-rank JSONL files) needs the port's ``aggregate`` and
-    raises ``NotImplementedError`` until then (ROADMAP Queue 1 item 8).
+    ``/status`` (JSON, see :meth:`LiveSink.status`), ``/healthz``
+    (200 "ok"), and — when ``rank_paths`` names the per-rank JSONL
+    files of a run of several processes, or a fleet's workers — ``/fleet``
+    (the :func:`~multigrad_tpu_torch.telemetry.aggregate.aggregate`
+    summary: per-rank accounting, span skew, stragglers).
 
     ``port=0`` (default) binds a free ephemeral port (read it back
     from ``.port``/``.url``); a fixed nonzero port is offset by the
@@ -883,13 +887,9 @@ class LiveServer:
                  rank_paths: Optional[Sequence[str]] = None,
                  port_probe: int = 16,
                  start: bool = True):
-        if rank_paths:
-            raise NotImplementedError(
-                "LiveServer(rank_paths=...), the /fleet view, is not "
-                "ported yet: it needs telemetry.aggregate (ROADMAP.md "
-                "Queue 1 item 8, serving)")
         self.sink = sink or LiveSink()
         self.metrics = self.sink.metrics
+        self.rank_paths = list(rank_paths) if rank_paths else None
         if port:
             from ..parallel.distributed import process_index
             port = int(port) + process_index()
@@ -948,6 +948,13 @@ class LiveServer:
                             "application/json")
                     elif path == "/healthz":
                         self._send(200, b"ok\n", "text/plain")
+                    elif path == "/fleet" and server.rank_paths:
+                        from .aggregate import aggregate
+                        self._send(
+                            200,
+                            json.dumps(aggregate(server.rank_paths),
+                                       default=str).encode(),
+                            "application/json")
                     else:
                         self._send(404, b"not found\n", "text/plain")
                 except BrokenPipeError:        # client went away

@@ -247,6 +247,21 @@ def _run_rank(out_file):
         json.dump(out, f)
 
 
+def _run_gather(out_file):
+    """Each rank's records, one of them unstamped, gathered to rank 0 by
+    ``telemetry.aggregate.gather_to_rank0`` under gloo."""
+    from multigrad_tpu_torch.telemetry.aggregate import gather_to_rank0
+    distributed.initialize(device="cpu")
+    rank = dist.get_rank()
+    records = [{"event": "span", "t": 10.0 - rank, "process_index": rank,
+                "path": "fit", "elapsed_s": 1.0},
+               {"event": "note", "t": 5.0 + rank, "text": "é" * (rank + 1)}]
+    got = gather_to_rank0(records)
+    dist.destroy_process_group()
+    with open(out_file, "w") as f:
+        json.dump({"rank": rank, "got": got}, f)
+
+
 def _launch(kind, world):
     """``world`` ranks of this file run as a script, each given its place
     in the environment as a launcher would; their JSON results."""
@@ -298,6 +313,18 @@ def test_one_rank_group_all_reduces_and_changes_nothing():
     assert got["sizes"] == [10, 2] * 3 and got["equal"]
 
 
+def test_gather_to_rank0_over_two_gloo_ranks():
+    r0, r1 = _launch("gather", 2)
+    assert r1["got"] is None
+    # Time-ordered across ranks; an unstamped record takes its rank.
+    assert [(r["event"], r["t"], r["process_index"]) for r in r0["got"]] \
+        == [("note", 5.0, 0), ("note", 6.0, 1), ("span", 9.0, 1),
+            ("span", 10.0, 0)]
+    assert [r["text"] for r in r0["got"] if r["event"] == "note"] \
+        == ["é", "éé"]
+
+
 if __name__ == "__main__":
     {"bootstrap": _run_rank,
-     "one_rank_fit": _run_one_rank_fit}[sys.argv[1]](sys.argv[2])
+     "one_rank_fit": _run_one_rank_fit,
+     "gather": _run_gather}[sys.argv[1]](sys.argv[2])

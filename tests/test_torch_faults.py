@@ -383,14 +383,60 @@ SERVE_NAMES = [f"{module}.{name}" for module, names in (
     ("utils.util", ("add_compile_observer", "remove_compile_observer")))
     for name in names]
 
+#: The fleet and job slice's names: the router, chaos, the stages and the
+#: job runner, and the fleet-watching CLIs (each module's ``__all__``).
+FLEET_NAMES = [f"{module}.{name}" for module, names in (
+    ("serve.fleet", ("FleetRouter", "FleetRouter.submit",
+                     "FleetRouter.close", "FleetRouter.shed_counts",
+                     "FleetRouter.fits_per_hour", "FleetRouter.history",
+                     "WorkerHandle", "WorkerLostError",
+                     "FleetSaturatedError", "FleetRequest")),
+    ("serve.chaos", ("ChaosController", "ChaosController.kill",
+                     "ChaosController.preempt", "ChaosController.suspend",
+                     "ChaosController.resume",
+                     "ChaosController.inject_queue_full",
+                     "ChaosController.stall",
+                     "ChaosController.pause_heartbeat",
+                     "ChaosController.after", "ChaosController.when",
+                     "ChaosController.when_inflight",
+                     "ChaosController.report")),
+    ("serve.stages", ("Stage", "StageRuntime", "StageRuntime.config",
+                      "StageRuntime.submit", "StageRuntime.run_fits",
+                      "FitStage", "SweepStage", "EnsembleStage",
+                      "LaplaceStage", "HmcStage", "PredictiveCheckStage")),
+    ("serve.jobs", ("Job", "JobRunner", "JobRunner.submit", "JobRunner.run",
+                    "JobFuture", "JobFuture.result", "JobResult",
+                    "StageResult", "JobFailed")),
+    ("telemetry.aggregate", ("load_rank_records", "merge_records",
+                             "rank_summary", "span_skew",
+                             "find_stragglers", "gather_to_rank0",
+                             "aggregate", "merge_traces", "render", "main")),
+    ("telemetry.trace", ("load_records", "load_spans", "group_traces",
+                         "trace_summary", "span_coverage",
+                         "render_waterfall", "render_summary_line",
+                         "main")),
+    ("telemetry.dashboard", ("TailReader", "Collector", "sparkline",
+                             "collect", "render", "main")),
+    ("telemetry.regress", ("load_dossier", "flatten_configs",
+                           "metric_direction", "is_time_metric",
+                           "time_delta_ms", "compare_rounds",
+                           "compare_tuned", "render_trajectory", "main")),
+    ("telemetry.top", ("fetch_source", "fold_records", "collect_rows",
+                       "render_rows", "collect_tenant_rows",
+                       "render_tenant_rows", "main")))
+    for name in names]
+
 #: Differences by design (ROADMAP Queue 3): the port's keyword-only
 #: ``comm`` of ``run_adam_streamed`` (its checkpoint's writer and
 #: barrier) and ``progress`` of ``trange`` (the port's callers turn the
 #: bar off there; the JAX package picks ``range`` at each call site), and
-#: the memory-budget knob ``k_budget_bytes``, which comes with sharded K.
+#: the memory-budget knob ``k_budget_bytes``, which comes with sharded K;
+#: the fleet's ``devices``/``platform`` (a worker's XLA runtime), whose
+#: place the port's ``device`` takes.
 PORT_ONLY = {"optim.adam.run_adam_streamed": ["comm"],
              "utils.util.trange": ["progress"]}
-JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"]}
+JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"],
+            "serve.fleet.FleetRouter": ["devices", "platform"]}
 
 
 @pytest.mark.parametrize("name", [
@@ -403,7 +449,7 @@ JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"]}
     "inference.ensemble.run_multistart_adam",
     "inference.ensemble.run_multistart_lbfgs", "inference.hmc.run_hmc",
     "parallel.distributed.initialize", "utils.util.simple_grad_descent",
-    "utils.util.trange"] + TELEMETRY_NAMES + SERVE_NAMES)
+    "utils.util.trange"] + TELEMETRY_NAMES + SERVE_NAMES + FLEET_NAMES)
 def test_public_signature_matches_the_jax_package(name):
     got = _names(_resolve("multigrad_tpu_torch", name))
     want = _names(_resolve("multigrad_tpu", name))

@@ -26,6 +26,7 @@ def _python_files():
     yield os.path.join(REPO_ROOT, "tools", "posterior_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "telemetry_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "serve_smf.py")
+    yield os.path.join(REPO_ROOT, "tools", "fleet_smf.py")
 
 
 def _imported_roots(path):
@@ -70,6 +71,15 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.telemetry.report\n"
         "import multigrad_tpu_torch.serve, multigrad_tpu_torch.serve.worker\n"
         "import multigrad_tpu_torch.serve.wire\n"
+        "import multigrad_tpu_torch.serve.fleet\n"
+        "import multigrad_tpu_torch.serve.chaos\n"
+        "import multigrad_tpu_torch.serve.stages\n"
+        "import multigrad_tpu_torch.serve.jobs\n"
+        "import multigrad_tpu_torch.telemetry.aggregate\n"
+        "import multigrad_tpu_torch.telemetry.trace\n"
+        "import multigrad_tpu_torch.telemetry.dashboard\n"
+        "import multigrad_tpu_torch.telemetry.regress\n"
+        "import multigrad_tpu_torch.telemetry.top\n"
         "import multigrad_tpu_torch.telemetry.resources\n"
         "import multigrad_tpu_torch.utils.lockdep\n"
         "import multigrad_tpu_torch.utils.testing\n"
@@ -111,10 +121,12 @@ def test_no_forbidden_import_in_sources():
             *(os.path.join("telemetry", f"{m}.py") for m in (
                 "__init__", "metrics", "spans", "taps", "comm", "flight",
                 "live", "alerts", "report", "profile", "tracing", "rollup",
-                "budget", "resources")),
+                "budget", "resources", "aggregate", "trace", "dashboard",
+                "regress", "top")),
             *(os.path.join("serve", f"{m}.py") for m in (
                 "__init__", "queue", "robustness", "qos", "slo",
-                "compile_cache", "scheduler", "wire", "worker")),
+                "compile_cache", "scheduler", "wire", "worker", "fleet",
+                "chaos", "stages", "jobs")),
             "_lockdep.py", os.path.join("utils", "lockdep.py"),
             os.path.join("utils", "testing.py")} <= names
     assert len(files) > 10
@@ -277,3 +289,36 @@ def test_worker_module_run_loads_no_jax(tmp_path):
         proc.stdout.close()
         proc.stderr.close()
     assert "must not import" not in err, err
+
+
+def test_fleet_router_defaults_to_the_card(tmp_path):
+    # device="cuda" unless the caller asks for the CPU: without a card
+    # the worker's model build raises, and so does the router's start.
+    import inspect
+    from multigrad_tpu_torch.serve import FleetRouter
+    assert inspect.signature(FleetRouter).parameters["device"].default \
+        == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetRouter(n_workers=1, base_dir=str(tmp_path),
+                    model_kwargs={"num_halos": 100}, spawn_timeout_s=120,
+                    env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+
+def test_fleet_worker_loads_no_jax(tmp_path):
+    # A worker the router spawns, with every import of jax, optax or
+    # multigrad_tpu refused from its first line on, serves a fit.
+    from multigrad_tpu_torch.serve import FleetRouter
+    (tmp_path / "sitecustomize.py").write_text(
+        BLOCKER.format(forbidden=FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=str(tmp_path), OMP_NUM_THREADS="1")
+    with FleetRouter(n_workers=1, device="cpu", base_dir=str(tmp_path / "f"),
+                     model_kwargs={"num_halos": 300}, buckets=(1,),
+                     batch_window_s=0.0, env=env) as router:
+        result = router.submit([-1.5, 0.4], nsteps=3).result(timeout=120)
+        log_path = router.workers[0].log_path
+    assert np.isfinite(result.loss) and result.worker == "w0"
+    with open(log_path) as f:
+        log = f.read()
+    assert "must not import" not in log, log

@@ -286,8 +286,12 @@ def test_live_server_that_cannot_bind_raises():
 
 
 def test_live_server_fleet_view_waits_for_aggregate():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LiveServer(rank_paths=["rank0.jsonl"], start=False)
+    # The /fleet view over per-rank files, once the port's aggregate
+    # came: the rank paths are kept and the server starts (the view
+    # itself: tests/test_torch_aggregate.py).
+    live = LiveServer(rank_paths=["rank0.jsonl"], start=False)
+    assert live.rank_paths == ["rank0.jsonl"]
+    assert LiveServer(start=False).rank_paths is None
 
 
 def test_model_fit_with_live_only_wires_a_logger():
