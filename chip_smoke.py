@@ -37,7 +37,7 @@ order:
    (the plain versions), fed the card's mean log M* and whole, at 1e6
    halos, dense and fused;
 10. the history path, dense: ``GalhaloHistModel(make_galhalo_hist_data(
-    1e8, chunk_size=1e6)).run_adam`` for 20 steps, launches counted;
+    1e8, chunk_size=1e6)).run_adam`` for 10 steps, launches counted;
 11. the history path, fused: the same with 41 edges, six epochs and
     ``bin_mode="fused"``, launches counted; its profiled step runs no
     index, scatter, gather or search kernel beyond the dense step's;
@@ -201,7 +201,30 @@ order:
     ``fisher_information`` at the best, HMC without a divergence and its
     acceptance in [0.5, 0.99]; the best's distance to ``JOINT_TRUTH``
     printed (phase 15 gates recovery), seconds a stage, fits/hour, and
-    the launches of the erf and pair kernels in the workers and here.
+    the launches of the erf and pair kernels in the workers and here;
+26. the autotuner and the static cost model (``multigrad_tpu_torch.tune``,
+    ``telemetry.costmodel``) over a fresh tuning table under ``build/``:
+    on the cold table ``"auto"`` gives the hand-set defaults (dense, no
+    chunk, ``DEFAULT_BUCKETS``); ``model_cost`` of the SMF model at 1e8
+    and of the history model at 1e8 in chunks of 1e6 launches no kernel
+    and takes no card memory, counts N·E erf and exp for the SMF, and is
+    joined against a measured loss and gradient (``roofline_frac``);
+    ``tune_model`` on the history model at 1e8 (41 edges, six epochs) in
+    the two sigma regimes of ``tests/test_tune.py:116-167`` prints every
+    candidate's prediction, measurement and roofline fraction (none above
+    1.05), keys the regimes apart, and an ``"auto"`` model rebuilt on each
+    winner is bit-equal to the same knobs set by hand (a fused winner's
+    counts within 2e-5·max of the dense ones); the same calls again are
+    warm, with no trial and no launch; ``tune_buckets`` on the SMF model
+    at 1e8 (1, 2, 4, 8, 16; 20 steps), a ``FitScheduler(buckets="auto",
+    tuning_table=...)`` and a worker with ``--tuning-table`` booting on
+    its ladder, a burst of 4 served fits bit-equal to solo fits;
+    ``tune_streaming`` at 1e8 from host memory around chunks of 2^22,
+    ``chunk_rows="auto"`` on the winner, streamed equal to the scan path
+    bit for bit; ``python -m multigrad_tpu_torch.tune`` at 1e8 twice
+    (``TUNE OK``, the second ``warm=True trials=0``); and
+    ``profiled_fit(cost=model_cost(...))`` over 5 SMF steps, its
+    ``roofline`` record at most 1.05.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
@@ -210,9 +233,10 @@ device time per launch in its path's profiler window;
 ``launches_hmc``, ``launches_nccl``, ``launches_telemetry`` and
 ``launches_serve`` are its launches in phase 18, the ensemble and the
 polish of phase 19, phases 20 and 21, phase 22's monitored fit and phase
-23's burst; ``launches_fleet`` its launches in phase 24's workers and
-``launches_job`` phase 25's, workers and this process), the
-``nvidia-smi`` line, and
+23's burst; ``launches_fleet`` its launches in phase 24's workers,
+``launches_job`` phase 25's, workers and this process, and
+``launches_tune`` phase 26's in this process), the ``nvidia-smi`` line,
+and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 It imports torch, numpy, the port and ``tools/hist_card_vs_cpu.py``
@@ -221,8 +245,8 @@ It imports torch, numpy, the port and ``tools/hist_card_vs_cpu.py``
 plain versions are masked matrix-vector products.
 """
 import json
-import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -239,42 +263,23 @@ GUESS = (-1.0, 0.5)
 TRUTH = (-2.0, 0.2)
 COT = [float(i) for i in range(10)]  # a fixed cotangent for the backward
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): device memory and
-# FP32 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# f32 operations per (particle, edge), counted from csrc/erf_counts.cu.
-# Forward, one cdf: z (2), clamp (2), x² (1), P and Q by Horner (6 and 4
-# FMAs: 20), x·P (1), /Q (1), 0.5·(1+erf) (2) = 29, plus 2 per bin for
-# the difference and the sum.  Backward: z (2), z² (1), expf (1),
-# dv += h·P (2), ΣP (1), P·z (1), hpz += h·Pz (2) = 10.
-FWD_OPS_PER_CDF, FWD_OPS_PER_BIN, BWD_OPS_PER_EDGE = 29, 2, 10
-# With a per-particle sigma, each particle also forms inv_i (2); the
-# dense backward weights each row term by inv_i (+1 per edge) and scales
-# dv and dsigma (5).  The fused backward per slot: h (1), z (2), z² (1),
-# expf (1), h·P (1), dv += (1), hz += h·P·z (2) = 9; per particle inv
-# and the scaling of dv and dsigma (7).
-INV_OPS, VEC_BWD_OPS_PER_EDGE, VEC_BWD_OPS = 2, 11, 5
-FUSED_BWD_OPS_PER_SLOT, FUSED_BWD_OPS = 9, 7
+# The H100's peaks and the kernels' operation counts are the package's
+# (multigrad_tpu_torch/ops/kernel_costs.py), the numbers the static cost
+# model reads: the bounds below and its predictions come from one count.
 # The history path (bench.py:339-372 and :2059-2063): 1e8 halos in chunks
-# of 1e6, from TRUTH + 0.05 at learning rate 1e-3.
-HIST_STEPS = 20
+# of 1e6, from TRUTH + 0.05 at learning rate 1e-3, HIST_STEPS Adam steps
+# (10, a step ≈2.3–2.6 s: the whole run with phase 26 stays near 900 s).
+HIST_STEPS = 10
 HIST_LR = 1e-3
 FUSED_EDGES = (7.0, 11.75, 41)
 FUSED_OBS = (5, 7, 9, 11, 13, 15)
 FUSED_SIGMA_MAX = 0.32
 # The pair counts (bench.py:416-460 and :295-336): a galaxy mock in a
 # 250 Mpc/h box, pimax 20, 8 r_p bins on logspace(-0.5, 1.2, 9); the xi
-# bins logspace(-0.3, 1.1, 8).  f32 operations per pair, counted from
-# csrc/pair_counts.cu: 19 with a box (differences 3, minimum image 9: |d|,
-# a compare and a subtract a coordinate, squares and sums 3 projected or
-# 5 in 3D, the pi cut 2 when projected, the range test 2); per pair inside
-# the bins' range, 3 per bin (two compares and a predicated add); per row,
-# 2 per bin for dw = sum_b g_b R_b (the row gradient, the sweep's end).
+# bins logspace(-0.3, 1.1, 8).
 PAIR_HALOS, PAIR_BIG = 100_000, 1_000_000
 PAIR_RAGGED = 100_003
 PAIR_BOX, PAIR_PIMAX = 250.0, 20.0
-PAIR_OPS, PAIR_OPS_PER_BIN, PAIR_ROW_OPS_PER_BIN = 19, 3, 2
 PAIR_PLAIN_ROWS = 512
 WPRP_GUESS = (-1.8, -0.8)
 # The joint fit (tests/test_group.py's multi-probe fit): its guess and
@@ -379,6 +384,24 @@ JOB_HMC, JOB_DRAWS, JOB_KILL_STEPS = (40, 40), 16, 20
 # when phase 25 starts after CUT_HMC_AFTER_S.
 CUT_FOUR_AFTER_S, CUT_HMC_AFTER_S, JOB_HMC_CUT = 600.0, 800.0, (20, 20)
 JOB_STAGES = ("scan", "ensemble", "laplace", "hmc", "check")
+# Phase 26, the tuner on the card: the history model at 1e8 halos in chunks
+# of HIST_CHUNK with 41 edges and six epochs, in the two sigma regimes of
+# tests/test_tune.py:116-167, TUNE_REGIMES = (tag, (sigma_0, sigma_slope)
+# or TRUTH's, sigma_max), trials of one loss and gradient, best of
+# TUNE_REPS, of the default and the TUNE_TOP_K - 1 best predicted (a
+# third, fused in chunks of 2^18, measured 3.2–7.0 s a trial and never
+# won); the SMF ladder over TUNE_BUCKETS at TUNE_BUCKET_STEPS steps; a
+# served burst of TUNE_BURST fits of TUNE_BURST_STEPS steps on it; the
+# streamed chunk rows around STREAM_CHUNK, TUNE_STREAM_STEPS steps a trial.
+# A measured time below the static prediction by more than ROOFLINE_MAX
+# means the count is short; a fused winner's counts stay within
+# COUNT_RTOL of the dense ones (PERF.md section 2's kernel limit).
+TUNE_REGIMES = (("sigma005", (0.05, -0.005), 0.08), ("sigma02", None, 0.32))
+TUNE_REPS, TUNE_TOP_K = 2, 2
+TUNE_BUCKETS, TUNE_BUCKET_STEPS = (1, 2, 4, 8, 16), 20
+TUNE_BURST, TUNE_BURST_STEPS = 4, 20
+TUNE_STREAM_STEPS = 2
+ROOFLINE_MAX, COUNT_RTOL = 1.05, 2e-5
 
 
 def log(msg):
@@ -1247,7 +1270,13 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
     # Profiler windows: 5 steps with a record every step, and without.
     # The trace must hold every erf launch the wrappers counted: a window
     # whose trace lost one (the profiler drops device events late in a
-    # long session) runs again, counted, up to WINDOW_ATTEMPTS in all.
+    # long session) runs again, counted, up to WINDOW_ATTEMPTS in all.  So
+    # does a monitored window whose device time an evaluation falls more
+    # than PER_STEP_RTOL below phase 5's: monitoring adds device work and
+    # cannot remove it, so a shorter trace is a trace that lost events
+    # (seen once: every kernel's events ~10% short, 143 of the 256 lead-in
+    # spins kept).  A window above phase 5's by more than that fails at
+    # once, as before.
     from multigrad_tpu_torch.telemetry.profile import WINDOW_ATTEMPTS
     window_retries = {False: 0, True: 0}
 
@@ -1274,13 +1303,17 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
             traced = {stem: sum(o["count"] for o in rec["top_ops"]
                                 if stem in o["op"])
                       for stem in ("erf_fwd_kernel", "erf_bwd_kernel")}
-            if set(traced.values()) == {nsteps}:
+            short = monitored and \
+                rec["per_step_us"] < (1 - PER_STEP_RTOL) * smf_busy_us
+            if set(traced.values()) == {nsteps} and not short:
                 break
             window_retries[monitored] += 1
             log(f"profile, {'monitored' if monitored else 'plain'}, attempt "
                 f"{attempt}: the trace holds {traced} erf launches of the "
                 f"{nsteps} each that the wrappers counted; "
-                f"{rec['per_step_us']:.2f} device us an evaluation")
+                f"{rec['per_step_us']:.2f} device us an evaluation (phase "
+                f"5's {smf_busy_us:.2f}); lead-in kept "
+                f"{rec['lead_in_kept']}")
         check(set(traced.values()) == {nsteps}, f"the profiler lost erf "
               f"kernel events in {WINDOW_ATTEMPTS} windows: {traced}")
         log(f"profile, {'monitored' if monitored else 'plain'} "
@@ -1293,7 +1326,7 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
         return rec
 
     plain, mon = window(False), window(True)
-    log(f"profile windows run again for lost erf events: plain "
+    log(f"profile windows run again for lost events: plain "
         f"{window_retries[False]}, monitored {window_retries[True]}")
     check("erf_fwd_kernel" in mon["top_ops"][0]["op"]
           and "erf_bwd_kernel" in mon["top_ops"][1]["op"],
@@ -2542,6 +2575,429 @@ def job_phase(reset_launches, read_launches, device="cuda",
                 trace=trace_cli.render_summary_line(summary))
 
 
+def tune_phase(reset_launches, read_launches, wrappers, t_start,
+               device="cuda", big=BIG_HALOS, hist_chunk=HIST_CHUNK,
+               stream_chunk=STREAM_CHUNK):
+    """Phase 26: the autotuner (``multigrad_tpu_torch.tune``) and the
+    static cost model (``telemetry.costmodel``) on the card, over a fresh
+    tuning table under ``build/``: the cold table's hand-set defaults;
+    ``model_cost`` of the SMF and history models at 1e8 (no launch, no
+    card memory; N·E erf and exp) against a measured loss and gradient;
+    ``tune_model`` on the history model at 1e8 in chunks of 1e6 in the
+    two sigma regimes of ``tests/test_tune.py:116-167`` (every candidate's
+    prediction, measurement and roofline fraction, which must not pass
+    ROOFLINE_MAX; the two keys apart; an ``"auto"`` model rebuilt on the
+    winner bit-equal to the same knobs set by hand; a fused winner's
+    counts within COUNT_RTOL·max of the dense ones), then warm: no trial,
+    no launch; ``tune_buckets`` on the SMF model at 1e8, a scheduler and a
+    worker (``--tuning-table``) booting on its ladder, a served burst
+    bit-equal to solo fits; ``tune_streaming`` at 1e8 from host memory,
+    ``chunk_rows="auto"`` on its winner, streamed equal to the scan path
+    bit for bit; the CLI twice at 1e8 (``TUNE OK``, the second warm); and
+    ``profiled_fit(cost=model_cost(...))`` over PROFILE_STEPS SMF steps.
+    Returns the phase's kernel launches in this process (its
+    subprocesses' are their own) and its numbers.  On the CPU
+    (``device="cpu"``, small sizes) it rehearses the same checks."""
+    import signal
+    import socket
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.data import StreamingOnePointModel
+    from multigrad_tpu_torch.models import (GalhaloHistModel, SMFModel,
+                                            make_galhalo_hist_data,
+                                            make_smf_data)
+    from multigrad_tpu_torch.models.galhalo_hist import TRUTH as HIST_TRUTH
+    from multigrad_tpu_torch.ops import cuda_build
+    from multigrad_tpu_torch.serve import (DEFAULT_BUCKETS, FitConfig,
+                                           FitScheduler)
+    from multigrad_tpu_torch.serve.wire import JsonlChannel
+    from multigrad_tpu_torch.telemetry import (MemorySink, MetricsLogger,
+                                               profiled_fit)
+    from multigrad_tpu_torch.telemetry.costmodel import (model_cost,
+                                                         roofline_record)
+    from multigrad_tpu_torch.tune import (TuningTable, tune_buckets,
+                                          tune_model, tune_streaming)
+
+    on_card = torch.device(device).type == "cuda"
+    card = torch.cuda.get_device_name(0) if on_card else "cpu"
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=build)
+    table_path = os.path.join(tmp, "tuning.json")
+    saved = os.environ.get("MGT_TUNING_TABLE")
+    os.environ["MGT_TUNING_TABLE"] = table_path
+    table = TuningTable(table_path)
+    zero = dict.fromkeys(wrappers, 0)
+    total = dict(zero)
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counted_here(fn):
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        seconds, launches = time.perf_counter() - t0, read_launches()
+        for name, n in launches.items():
+            total[name] += n
+        return result, seconds, launches
+
+    def seconds_of(fn, reps):
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    def stamp(step):
+        log(f"[{time.perf_counter() - t_start:.0f} s] phase 26: {step}")
+
+    try:
+        # 1. the cold table: the hand-set defaults ---------------------
+        stamp("cold table")
+        smf = SMFModel(aux_data=make_smf_data(big, bin_mode="auto",
+                                              chunk_size="auto",
+                                              device=device))
+        haux = make_galhalo_hist_data(big, chunk_size=hist_chunk,
+                                      bin_edges=np.linspace(*FUSED_EDGES),
+                                      obs_indices=FUSED_OBS, device=device)
+        hauto = GalhaloHistModel(aux_data=dict(
+            haux, bin_mode="auto", chunk_size="auto",
+            sigma_max=FUSED_SIGMA_MAX))
+        sched = FitScheduler(smf, buckets="auto", start=False)
+        cold = dict(smf=(smf.aux_data["bin_mode"],
+                         smf.aux_data["chunk_size"]),
+                    hist=(hauto.aux_data["bin_mode"],
+                          hauto.aux_data["chunk_size"]),
+                    buckets=sched.buckets)
+        sched.close(drain=False)
+        del hauto
+        log(f"cold table: SMF at {big:,} (bin_mode, chunk_size) = "
+            f"{cold['smf']}, history {cold['hist']}, "
+            f"FitScheduler(buckets='auto') {cold['buckets']}")
+        check(cold["smf"] == ("dense", None)
+              and cold["hist"] == ("dense", None)
+              and cold["buckets"] == DEFAULT_BUCKETS,
+              f"cold-table resolution: {cold}")
+
+        # 2. the cost model on the card --------------------------------
+        stamp("cost model")
+        hist = GalhaloHistModel(aux_data=haux)
+        sync()
+        reset_launches()
+        # The caching allocator's count of allocations made so far: a
+        # tensor another phase left to the garbage collector may be
+        # freed meanwhile, so the bytes allocated could fall.
+        allocations = torch.cuda.memory_stats()[
+            "allocation.all.allocated"] if on_card else 0
+        t0 = time.perf_counter()
+        smf_cost = model_cost(smf, GUESS)
+        smf_count_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hist_cost = model_cost(hist, np.asarray(HIST_TRUTH))
+        hist_count_s = time.perf_counter() - t0
+        sync()
+        count_launches = read_launches()
+        check(count_launches == zero, f"model_cost launched kernels: "
+              f"{count_launches}")
+        made = torch.cuda.memory_stats()["allocation.all.allocated"] \
+            - allocations if on_card else 0
+        check(made == 0, f"model_cost allocated card memory {made} times")
+        check(smf_cost.transcendentals["erf"] == big * 11
+              and smf_cost.transcendentals["exp"] == big * 11,
+              f"SMF transcendentals {smf_cost.transcendentals}")
+        smf.calc_loss_and_grad_from_params(GUESS)
+        smf_s = seconds_of(lambda: smf.calc_loss_and_grad_from_params(
+            GUESS), 10)
+        hist.calc_loss_and_grad_from_params(HIST_TRUTH)
+        hist_s = seconds_of(lambda: hist.calc_loss_and_grad_from_params(
+            HIST_TRUTH), 1)
+        out["roofline"] = {}
+        for label, cost, seconds, count_s in (
+                ("smf", smf_cost, smf_s, smf_count_s),
+                ("history", hist_cost, hist_s, hist_count_s)):
+            roof = roofline_record(cost, seconds, device_kind=card)
+            out["roofline"][label] = roof
+            log(f"cost model, {label} at {big:,}: {cost.flops:.6g} "
+                f"operations, transcendentals {cost.transcendentals}, "
+                f"min HBM bytes {cost.min_hbm_bytes}; predicted "
+                f"{roof['predicted_s'] * 1e3:.6f} ms ({roof['bound']}-"
+                f"bound), a measured loss and gradient "
+                f"{seconds * 1e3:.4f} ms: roofline_frac "
+                f"{roof['roofline_frac']:.6f}; counted in {count_s:.2f} s "
+                "on the host, no launch, no card memory")
+            check(roof["roofline_frac"] <= ROOFLINE_MAX,
+                  f"{label}: roofline_frac {roof['roofline_frac']} > "
+                  f"{ROOFLINE_MAX}: the count is short")
+
+        # 3. tune_model on the history model, two sigma regimes --------
+        tuned = {}
+        for tag, sigma, sigma_max in TUNE_REGIMES:
+            stamp(f"tune_model {tag}")
+            params = np.asarray(HIST_TRUTH, np.float64)
+            if sigma is not None:
+                params[8], params[9] = sigma
+            res, seconds, launches = counted_here(lambda: tune_model(
+                hist, params, sigma_max=sigma_max, table=table,
+                top_k=TUNE_TOP_K, reps=TUNE_REPS, trial="eval"))
+            for c in res.candidates:
+                log(f"tune {tag}: {c['knobs']} predicted "
+                    f"{c['predicted_s']} s, measured {c['measured_s']} s, "
+                    f"roofline_frac {c.get('roofline_frac')}"
+                    + (" CHOSEN" if c["chosen"] else ""))
+            log(f"tune {tag}: key {res.key}, chosen {res.chosen}, "
+                f"{res.n_trials} candidates measured in {seconds:.2f} s; "
+                f"launches {launches}")
+            check(not res.warm and res.n_trials >= 2,
+                  f"{tag}: {res.n_trials} trials")
+            check(all(c["roofline_frac"] <= ROOFLINE_MAX
+                      for c in res.candidates if c["measured_s"]),
+                  f"{tag}: a roofline_frac above {ROOFLINE_MAX}")
+            tuned[tag] = (res, params, sigma_max)
+        keys = {res.key for res, _, _ in tuned.values()}
+        check(len(keys) == 2, f"the two regimes share a key: {keys}")
+
+        # The winner through "auto", bit-equal to its knobs set by hand;
+        # a fused winner's counts against the dense ones.
+        stamp("auto against hand-set")
+        out["tune"] = {}
+        for tag, (res, params, sigma_max) in tuned.items():
+            chosen = res.chosen
+            auto = GalhaloHistModel(aux_data=dict(
+                haux, bin_mode="auto", chunk_size="auto",
+                sigma_max=sigma_max))
+            resolved = {k: auto.aux_data[k] for k in
+                        ("bin_mode", "bin_window", "chunk_size")}
+            want = dict(chosen) if chosen["bin_mode"] == "fused" else \
+                dict(chosen, bin_window=auto.aux_data["bin_window"])
+            check(resolved == {k: want[k] for k in resolved},
+                  f"{tag}: auto resolved {resolved}, tuned {chosen}")
+            hand = GalhaloHistModel(aux_data=dict(
+                haux, sigma_max=sigma_max, **chosen))
+            (a, b), _, _ = counted_here(lambda: (
+                auto.calc_loss_and_grad_from_params(params),
+                hand.calc_loss_and_grad_from_params(params)))
+            check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                  f"{tag}: auto {a} != hand-set {b}")
+            err = None
+            if chosen["bin_mode"] == "fused":
+                dense = GalhaloHistModel(aux_data=dict(
+                    haux, chunk_size=chosen["chunk_size"]))
+                (yf, yd), _, _ = counted_here(lambda: (
+                    hand.calc_sumstats_from_params(params),
+                    dense.calc_sumstats_from_params(params)))
+                err = float((yf - yd).abs().max())
+                check(err <= COUNT_RTOL * float(yd.abs().max()),
+                      f"{tag}: fused counts off the dense ones by {err}")
+                del dense
+            log(f"tune {tag}: 'auto' resolves {resolved}; its loss and "
+                f"gradient bit-equal to the hand-set model's "
+                f"({float(a[0]):.7g}); fused against dense counts "
+                f"max|err| {err}")
+            out["tune"][tag] = dict(
+                key=res.key, chosen=chosen, fused_err=err,
+                baseline_s=res.baseline_s, measured_s=res.measured_s,
+                candidates=[{k: c.get(k) for k in (
+                    "knobs", "predicted_s", "measured_s", "roofline_frac",
+                    "chosen")} for c in res.candidates])
+            del auto, hand
+
+        # 4. warm: no trial, no launch ---------------------------------
+        stamp("warm start")
+        for tag, (res, params, sigma_max) in tuned.items():
+            warm, _, launches = counted_here(lambda: tune_model(
+                hist, params, sigma_max=sigma_max, table=table,
+                top_k=TUNE_TOP_K, reps=TUNE_REPS, trial="eval"))
+            log(f"tune {tag} again: warm={warm.warm} trials="
+                f"{warm.n_trials} launches {launches}")
+            check(warm.warm and warm.n_trials == 0 and launches == zero
+                  and warm.chosen == res.chosen,
+                  f"{tag}: not a warm start: {warm}, {launches}")
+        del hist, haux
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # 5. the bucket ladder -----------------------------------------
+        stamp("tune_buckets")
+        bres, seconds, launches = counted_here(lambda: tune_buckets(
+            smf, GUESS, candidates=TUNE_BUCKETS, nsteps=TUNE_BUCKET_STEPS,
+            reps=TUNE_REPS, table=table))
+        ladder = tuple(bres.chosen["buckets"])
+        fph = {c["knobs"]["bucket"]: c["fits_per_hour"]
+               for c in bres.candidates}
+        log(f"tune_buckets at {big:,}, {TUNE_BUCKET_STEPS} steps: "
+            f"fits/hour {fph}, ladder {list(ladder)} ({seconds:.2f} s, "
+            f"launches {launches})")
+        out["buckets"] = dict(fits_per_hour=fph, ladder=list(ladder))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+        worker = subprocess.Popen(
+            [sys.executable, "-m", "multigrad_tpu_torch.serve.worker",
+             "--model", "smf", "--model-kwargs",
+             json.dumps({"num_halos": big}), "--buckets", "auto",
+             "--tuning-table", table_path, "--compile-cache",
+             str(cuda_build.build_dir()), "--device", device],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, text=True)
+        try:
+            sched = FitScheduler(smf, buckets="auto", tuning_table=table,
+                                 batch_window_s=0.0, start=False)
+            check(sched.buckets == ladder,
+                  f"the scheduler booted on {sched.buckets}, not {ladder}")
+            guesses = serve_guesses(TUNE_BURST)
+            futs = [sched.submit(g, config=FitConfig(
+                nsteps=TUNE_BURST_STEPS, learning_rate=SERVE_LR))
+                for g in guesses]
+            results, _, launches = counted_here(lambda: (
+                sched.start(), [f.result(timeout=600) for f in futs])[1])
+            sched.close()
+            solo = [np.array_equal(r.traj, smf.run_adam(
+                guess=g, nsteps=TUNE_BURST_STEPS, learning_rate=SERVE_LR,
+                progress=False).cpu().numpy())
+                for r, g in zip(results, guesses)]
+            log(f"FitScheduler(buckets='auto', tuning_table=...) booted on "
+                f"{list(sched.buckets)}; a burst of {TUNE_BURST} fits in "
+                f"buckets {[r.bucket for r in results]}, launches "
+                f"{launches}; bit-equal to solo fits: {solo}")
+            check(all(solo), f"served fits against solo fits: {solo}")
+            line = read_line(worker, 300)
+            check(line.startswith("FLEET-WORKER-READY "),
+                  f"no READY handshake: {line!r}")
+            info = json.loads(line.split(" ", 1)[1])
+            chan = JsonlChannel(socket.create_connection(
+                ("127.0.0.1", info["port"]), timeout=300))
+            worker.send_signal(signal.SIGTERM)
+            ops = []
+            while not ops or ops[-1] != "drained":
+                msg = chan.recv()
+                check(msg is not None, f"the worker hung up after {ops}")
+                if msg["op"] != "heartbeat":
+                    ops.append(msg["op"])
+            code = worker.wait(timeout=120)
+            log(f"worker --tuning-table: READY with buckets "
+                f"{info.get('buckets')}; SIGTERM {ops}, exit {code}")
+            check(tuple(info.get("buckets") or ()) == ladder and code == 0,
+                  f"the worker's ladder {info.get('buckets')} (exit {code})")
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+
+        # 6. streamed chunk rows ---------------------------------------
+        stamp("tune_streaming")
+        saux = make_smf_data(big, device=device)
+        log_mh = saux.pop("log_halo_masses").cpu().numpy()
+
+        def streamed(rows):
+            return StreamingOnePointModel(
+                model=SMFModel(aux_data=dict(saux)),
+                streams={"log_halo_masses": log_mh}, chunk_rows=rows)
+
+        sres, seconds, launches = counted_here(lambda: tune_streaming(
+            streamed(stream_chunk), GUESS, table=table,
+            trial_steps=TUNE_STREAM_STEPS, reps=TUNE_REPS))
+        for c in sres.candidates:
+            log(f"tune_streaming: {c['knobs']} ({c['n_chunks']} chunks) "
+                f"measured {c['measured_s']} s/step, predicted "
+                f"{c['predicted_s']} s, roofline_frac "
+                f"{c.get('roofline_frac')}"
+                + (" CHOSEN" if c["chosen"] else ""))
+        auto = streamed("auto")
+        (two, scan), _, _ = counted_here(lambda: (
+            auto.calc_loss_and_grad_from_params(GUESS),
+            auto.calc_loss_and_grad_scan(GUESS)))
+        same = torch.equal(two[0], scan[0]) and torch.equal(two[1], scan[1])
+        log(f"tune_streaming: chosen {sres.chosen} in {seconds:.2f} s "
+            f"(launches {launches}); chunk_rows='auto' -> "
+            f"{auto.chunk_rows}; streamed equal to the scan path bit for "
+            f"bit: {same}")
+        check(auto.chunk_rows == sres.chosen["chunk_rows"],
+              f"chunk_rows='auto' gave {auto.chunk_rows}, tuned "
+              f"{sres.chosen}")
+        check(same, f"streamed {two} against scan {scan}")
+        check(all(c["roofline_frac"] <= ROOFLINE_MAX
+                  for c in sres.candidates if c.get("roofline_frac")),
+              "a streamed roofline_frac above the limit")
+        out["stream"] = dict(
+            chosen=sres.chosen,
+            s_per_step={c["knobs"]["chunk_rows"]: c["measured_s"]
+                        for c in sres.candidates})
+        del auto, two, scan, log_mh
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # 7. the CLI, twice -------------------------------------------
+        stamp("the CLI")
+        cli = [sys.executable, "-m", "multigrad_tpu_torch.tune", "--model",
+               "smf", "--num-halos", str(big), "--table",
+               os.path.join(tmp, "cli.json"), "--tune-buckets",
+               "--device", device]
+        out["cli"] = []
+        for run in (1, 2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cli, cwd=HERE, env=env, text=True,
+                                  capture_output=True, timeout=600)
+            lines = [ln for ln in proc.stderr.splitlines()
+                     if ln.startswith("TUNE")]
+            log(f"CLI run {run} ({time.perf_counter() - t0:.1f} s, exit "
+                f"{proc.returncode}): " + " | ".join(lines)
+                + f" | {proc.stdout.strip()}")
+            check(proc.returncode == 0 and "TUNE OK" in proc.stdout,
+                  f"the CLI failed: {proc.stderr[-2000:]}")
+            out["cli"].append(lines)
+        check(any("warm=True trials=0" in ln for ln in out["cli"][1]),
+              f"the second CLI run was not warm: {out['cli'][1]}")
+
+        # 8. profiled_fit with the step's static cost ------------------
+        stamp("profiled_fit(cost=)")
+        smf.run_adam(guess=GUESS, nsteps=2, learning_rate=0.02,
+                     progress=False)
+        for attempt in range(1, 4):
+            sink = MemorySink()
+
+            def profiled():
+                with profiled_fit(MetricsLogger(sink), name="smf",
+                                  nsteps=PROFILE_STEPS, cost=smf_cost,
+                                  device=device) as prof:
+                    smf.run_adam(guess=GUESS, nsteps=PROFILE_STEPS,
+                                 learning_rate=0.02, progress=False)
+                return prof
+
+            prof, _, launches = counted_here(profiled)
+            roof = [r for r in sink.records if r["event"] == "roofline"]
+            if prof.error is None and roof:
+                break
+            log(f"profiled_fit window {attempt}: {prof.error}")
+        check(prof.error is None and len(roof) == 1,
+              f"no roofline record: {prof.error}")
+        roof = roof[0]
+        log(f"profiled_fit(cost=model_cost(...)) over {PROFILE_STEPS} steps: "
+            f"{roof['measured_s'] * 1e3:.4f} ms device time a step, "
+            f"predicted {roof['predicted_s'] * 1e3:.6f} ms "
+            f"({roof['bound']}), roofline_frac {roof['roofline_frac']:.6f} "
+            f"on {roof['device_kind']}; launches {launches}")
+        check(roof["roofline_frac"] <= ROOFLINE_MAX
+              and roof["device_kind"] == card,
+              f"roofline record {roof}")
+        out["profiled"] = {k: roof[k] for k in (
+            "measured_s", "predicted_s", "roofline_frac", "bound")}
+    finally:
+        if saved is None:
+            os.environ.pop("MGT_TUNING_TABLE", None)
+        else:
+            os.environ["MGT_TUNING_TABLE"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = total
+    log(f"phase 26 launches in this process: {total}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2571,6 +3027,7 @@ def main():
     from multigrad_tpu_torch.ops import cuda_build
     from multigrad_tpu_torch.ops import erf_kernels as ek
     from multigrad_tpu_torch.ops import fused_kernels as fk
+    from multigrad_tpu_torch.ops import kernel_costs as kc
     from multigrad_tpu_torch.ops import pair_kernels as pk
     from tools.hist_card_vs_cpu import evaluate, evaluate_fed, gaps
     wrappers = {"erf_counts_fwd": ek.erf_counts_fwd_cuda,
@@ -2809,7 +3266,7 @@ def main():
     check(np.allclose(final, TRUTH, atol=0.02), f"fit ended at {final}")
 
     def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        t_bytes, t_ops = nbytes / kc.HBM_BYTES_PER_S, ops / kc.FP32_OPS_PER_S
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
 
@@ -3681,43 +4138,42 @@ def main():
     job = job_phase(reset_launches, read_launches, hmc=hmc_draws)
     torch.cuda.empty_cache()
 
+    # 26. the autotuner and the static cost model ------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 26")
+    tune = tune_phase(reset_launches, read_launches, wrappers, t_start)
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
     fwd_bound, fwd_by = bound(
         4 * (n + n_edges + 1 + (n_edges - 1)),
-        n * (FWD_OPS_PER_CDF * n_edges + FWD_OPS_PER_BIN * (n_edges - 1)))
+        kc.erf_fwd_ops(n, n_edges, vec=False))
     bwd_bound, bwd_by = bound(
         4 * (n + n_edges + 1 + (n_edges - 1) + n + n_edges + 1),
-        n * BWD_OPS_PER_EDGE * n_edges)
+        kc.erf_bwd_ops(n, n_edges, vec=False))
     # The history path's launch shape: 1e6 particles, 14 edges (dense)
     # or 41 edges and a 33-edge window (fused), per-particle sigma.
     nc, e, w = HIST_CHUNK, n_hist_edges, window
     fwd_vec_bound = bound(
         4 * (2 * nc + e + (e - 1)),
-        nc * (FWD_OPS_PER_CDF * e + FWD_OPS_PER_BIN * (e - 1) + INV_OPS))
+        kc.erf_fwd_ops(nc, e, vec=True))
     bwd_vec_bound = bound(
         4 * (2 * nc + e + (e - 1) + 2 * nc + e),
-        nc * (VEC_BWD_OPS_PER_EDGE * e + INV_OPS + VEC_BWD_OPS))
+        kc.erf_bwd_ops(nc, e, vec=True))
     # The fused kernels (one launch each way):
     # values and sigma read once, the edges (and the counts' cotangent)
-    # once, the counts (or dv and dsigma) written once; no masses.  Per
-    # particle the window start (the clip, x = v - half·sigma: 3; a compare
-    # and a select per step of the search over E edges: 2·ceil(log2 E);
-    # the clip to [0, E-W]: 2) and, forward, W cdfs, W-1 differences and
-    # W-1 adds into the bins.
-    search = 5 + 2 * math.ceil(math.log2(n_fused_edges))
-
+    # once, the counts (or dv and dsigma) written once; no masses.  The
+    # operations: the window start, and W cdfs, W-1 differences and W-1
+    # adds into the bins a particle (kernel_costs.fused_fwd_ops).
     def fused_bounds(n):
         """The fused forward's and backward's bounds for ``n`` particles
         with a per-particle sigma."""
         return (bound(4 * (2 * n + n_fused_edges + (n_fused_edges - 1)),
-                      n * (FWD_OPS_PER_CDF * w + 2 * (w - 1) + INV_OPS
-                           + search)),
+                      kc.fused_fwd_ops(n, n_fused_edges, w, vec=True)),
                 bound(4 * (2 * n + n_fused_edges + (n_fused_edges - 1)
                            + 2 * n),
-                      n * (FUSED_BWD_OPS_PER_SLOT * w + FUSED_BWD_OPS
-                           + search)))
+                      kc.fused_bwd_ops(n, n_fused_edges, w, vec=True)))
 
     fused_fwd_bound, fused_bwd_bound = fused_bounds(nc)
     # The pair kernels at the wp(rp) path's shape (an autocorrelation of
@@ -3727,11 +4183,11 @@ def main():
     # reads R and writes dw.
     def pair_bounds(n, in_range):
         nb = 8
-        pairs = n * n * PAIR_OPS + in_range * PAIR_OPS_PER_BIN * nb
-        fwd = bound(4 * (4 * n + (nb + 1) + nb + nb * n), pairs)
-        rowgrad = bound(4 * (nb * n + nb + n), PAIR_ROW_OPS_PER_BIN * nb * n)
+        fwd = bound(4 * (4 * n + (nb + 1) + nb + nb * n),
+                    kc.pair_fwd_ops(n, n, nb, box=True, in_range=in_range))
+        rowgrad = bound(4 * (nb * n + nb + n), kc.pair_rowgrad_ops(n, nb))
         sweep = bound(4 * (4 * n + (nb + 1) + nb + n),
-                      pairs + PAIR_ROW_OPS_PER_BIN * nb * n)
+                      kc.pair_bwd_ops(n, n, nb, box=True, in_range=in_range))
         return fwd, rowgrad, sweep
 
     pair_fwd_bound, pair_row_bound, pair_bwd_bound = pair_bounds(
@@ -3852,15 +4308,21 @@ def main():
                  # this process's (Laplace, HMC, the check).
                  launches_fleet=sum(w[k["name"]] for w in
                                     fleet["launches"].values() if w),
-                 launches_job=job["launches"][k["name"]])
+                 launches_job=job["launches"][k["name"]],
+                 # Phase 26: the tuner's trials, checks and profiled fit
+                 # in this process.
+                 launches_tune=tune["launches"][k["name"]])
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     on_path = {"launches_fleet": ("erf_counts_fwd", "erf_counts_bwd"),
                "launches_job": ("erf_counts_fwd", "erf_counts_bwd",
-                                "pair_counts_fwd", "pair_rowgrad")}
+                                "pair_counts_fwd", "pair_rowgrad"),
+               "launches_tune": ("erf_counts_fwd", "erf_counts_bwd",
+                                 "erf_counts_fwd_vec", "erf_counts_bwd_vec",
+                                 "fused_counts_fwd", "fused_counts_bwd")}
     check(all(k[key] > 0 for key, names in on_path.items()
               for k in kernels if k["name"] in names),
-          f"a kernel of phase 24 or 25 was not launched: {kernels}")
+          f"a kernel of phase 24, 25 or 26 was not launched: {kernels}")
     log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
         "at 1e8 + 1e5 halos")
     log("streamed SMF at 1e8: " + ", ".join(

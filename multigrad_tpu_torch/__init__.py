@@ -28,7 +28,10 @@ the card, ``python -m multigrad_tpu_torch.serve.worker`` puts one
 behind the JAX package's wire, a ``FleetRouter`` routes over several
 such workers with requeue on a lost one, and a ``JobRunner`` runs a
 whole posterior pipeline (scan, ensemble, Laplace, HMC, check) as one
-job.  The hot
+job.  ``tune`` sets the perf knobs (``bin_mode``, chunk sizes, the
+bucket ladder) from short trials on the card, pruned by the static cost
+model, and keeps the winners in a table beside the kernel libraries:
+``"auto"`` resolves to them.  The hot
 op, the erf-CDF binned counts of the SMF and galaxy–halo models, runs as
 hand-written CUDA kernels on CUDA tensors and as their plain PyTorch
 versions on CPU tensors: the dense counts with a scalar or a
@@ -75,6 +78,9 @@ from .telemetry import (AlertEngine, CommCounter, FlightRecorder,  # noqa
                         profiled_fit, run_record)
 from . import serve  # noqa: F401
 from .serve import *  # noqa: F401,F403  (serve.__all__)
+from . import tune  # noqa: F401
+from .tune import (TuneResult, TuningTable, tune_buckets,  # noqa: F401
+                   tune_model, tune_streaming)
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
@@ -98,5 +104,7 @@ __all__ = [
     "FlightRecorder", "FlightRecorderTripped", "profiled_fit",
     "LiveMetrics", "LiveServer", "AlertEngine",
     "serve", *serve.__all__,
+    "tune", "TuneResult", "TuningTable", "tune_model", "tune_buckets",
+    "tune_streaming",
     "__version__",
 ]

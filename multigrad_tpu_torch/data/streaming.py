@@ -52,7 +52,6 @@ import numpy as np
 import torch
 
 from ..core.model import OnePointModel, psum_tree, tree_map
-from ..ops.binned import AUTO_NOT_PORTED
 from ..optim import adam as _adam
 from ..optim.adam import init_randkey
 from ..parallel.collectives import psum
@@ -85,11 +84,13 @@ class StreamingOnePointModel:
         model's sumstats method reads.  All streams must be row-aligned.
         Values pass through :func:`~multigrad_tpu_torch.data.source
         .as_source`.
-    chunk_rows : int
+    chunk_rows : int or "auto"
         Global rows per chunk (rounded up to a multiple of the comm size;
         see :func:`~multigrad_tpu_torch.data.source.plan_chunks`).  Each
-        process loads only its shard of each chunk.  ``"auto"`` is not
-        ported yet.
+        process loads only its shard of each chunk.  ``"auto"`` resolves
+        the tuned chunk size from the autotuner's table
+        (:func:`multigrad_tpu_torch.tune.tune_streaming` writes it), or
+        ``min(n_rows, 2**20)`` on a cold table.
     pad_values : float or mapping of str -> float
         Neutral filler of the ragged final chunk, per stream.  Default
         ``inf`` (neutral for the erf-CDF counts).
@@ -100,7 +101,8 @@ class StreamingOnePointModel:
     remat_policy : str | callable | None
         The scan path's per-chunk remat policy (see
         :func:`~multigrad_tpu_torch.core.model.resolve_remat_policy`).
-        Default ``"dots"``.  ``"auto"`` is not ported yet.
+        Default ``"dots"``.  ``"auto"`` resolves the tuned policy from
+        the autotuner's table (``"dots"`` cold).
     """
 
     model: OnePointModel
@@ -121,7 +123,15 @@ class StreamingOnePointModel:
             raise ValueError(
                 f"streams must be row-aligned, got lengths {lengths}")
         if self.chunk_rows == "auto" or self.remat_policy == "auto":
-            raise NotImplementedError(AUTO_NOT_PORTED)
+            # Tuned streaming knobs from the autotuner's table, keyed by
+            # the device the chunks go to; a cold table gives the
+            # hand-set defaults.
+            from ..tune.resolve import resolve_stream_knobs
+            self.chunk_rows, self.remat_policy = resolve_stream_knobs(
+                type(self.model).__name__,
+                next(iter(self.streams.values())).n_rows,
+                self.model.comm, chunk_rows=self.chunk_rows,
+                remat_policy=self.remat_policy, device=self.model.device)
         if isinstance(self.model.aux_data, dict):
             overlap = set(self.streams) & set(self.model.aux_data)
             if overlap:

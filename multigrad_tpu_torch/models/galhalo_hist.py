@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.model import OnePointModel
-from ..ops.binned import AUTO_NOT_PORTED, binned_density, fused_bin_window
+from ..ops.binned import binned_density, fused_bin_window
 from ..parallel.collectives import scatter_nd
 from ..parallel.mesh import MeshComm
 from ..utils.util import pad_to_multiple, resolve_device
@@ -276,9 +276,9 @@ def _multi_epoch_smf(log_mh, params, aux):
     return acc.reshape(-1)
 
 
-#: ``sigma_max`` of the fused window for this model: the TRUTH scatter
-#: (sigma_0 = 0.2) plus the mass-slope excursion over the sampled halo
-#: range.
+#: Default ``sigma_max`` bound for ``bin_mode="auto"``: the TRUTH
+#: scatter (sigma_0 = 0.2) plus the mass-slope excursion over the sampled
+#: halo range.
 DEFAULT_SIGMA_MAX = 0.32
 
 
@@ -300,10 +300,12 @@ def make_galhalo_hist_data(num_halos=100_000,
     ``bin_mode="fused"`` takes the windowed counts with ``bin_window``
     edges, derived from ``sigma_max`` when only that is given (see
     :func:`~multigrad_tpu_torch.ops.binned.fused_bin_window`).
-    ``"auto"`` (for ``bin_mode`` or ``chunk_size``) is not ported yet.
+    ``bin_mode="auto"`` / ``chunk_size="auto"`` defer to the autotuner's
+    tuning table (:mod:`multigrad_tpu_torch.tune`; resolved at model
+    construction, the hand-set defaults on a cold table); ``sigma_max``
+    bounds the fused window auto may pick (default
+    :data:`DEFAULT_SIGMA_MAX`).
     """
-    if bin_mode == "auto" or chunk_size == "auto":
-        raise NotImplementedError(AUTO_NOT_PORTED)
     device = resolve_device(device)
     if bin_edges is None:
         bin_edges = torch.linspace(7.0, 11.75, 14)
@@ -311,7 +313,10 @@ def make_galhalo_hist_data(num_halos=100_000,
                                 device=device)
     t_grid = default_time_grid(n_times, device=device)
     log_mh = sample_log_halo_masses(num_halos, device=device)
-    if bin_mode == "fused" and bin_window is None and sigma_max is not None:
+    if bin_mode == "auto" and sigma_max is None:
+        sigma_max = DEFAULT_SIGMA_MAX
+    if bin_mode in ("auto", "fused") and bin_window is None \
+            and sigma_max is not None:
         bin_window = fused_bin_window(bin_edges, float(sigma_max))
     aux = dict(
         bin_edges=bin_edges,
@@ -324,8 +329,15 @@ def make_galhalo_hist_data(num_halos=100_000,
     )
     if sigma_max is not None:
         aux["sigma_max"] = float(sigma_max)
+    # The target is computed on concrete knobs: "auto" resolves only at
+    # model construction, and any bin mode gives the same float32 target.
+    target_aux = dict(aux)
+    if target_aux["bin_mode"] == "auto":
+        target_aux["bin_mode"] = "dense"
+    if target_aux["chunk_size"] == "auto":
+        target_aux["chunk_size"] = None
     with torch.no_grad():
-        aux["target_sumstats"] = _multi_epoch_smf(log_mh, TRUTH, aux)
+        aux["target_sumstats"] = _multi_epoch_smf(log_mh, TRUTH, target_aux)
     if comm is not None:
         log_mh = scatter_nd(log_mh, axis=0, comm=comm, pad_value=_PAD_LOGM)
     aux["log_halo_masses"] = log_mh
@@ -343,9 +355,12 @@ class GalhaloHistModel(OnePointModel):
 
     def __post_init__(self):
         if isinstance(self.aux_data, dict):
-            if self.aux_data.get("bin_mode") == "auto" \
-                    or self.aux_data.get("chunk_size") == "auto":
-                raise NotImplementedError(AUTO_NOT_PORTED)
+            # "auto" knobs resolve through the autotuner's tuning table
+            # once, at construction, before any step runs (cold table:
+            # the hand-set defaults).
+            from ..tune.resolve import resolve_auto_aux
+            self.aux_data = resolve_auto_aux(
+                type(self).__name__, self.aux_data, self.comm)
             # Epochs are configuration: keep them a tuple of ints (an
             # array or a 0-d value is normalized).
             oi = self.aux_data.get("obs_indices")

@@ -14,13 +14,13 @@ import numpy as np
 import torch
 
 from ..core.model import OnePointModel
-from ..ops.binned import AUTO_NOT_PORTED, binned_density, fused_bin_window
+from ..ops.binned import binned_density, fused_bin_window
 from ..parallel.collectives import scatter_nd
 from ..parallel.mesh import MeshComm
 from ..utils.util import resolve_device
 
-#: Default ``sigma_max`` for the fused window (the largest scatter the
-#: canonical SMF fits reach).
+#: Default ``sigma_max`` bound for ``bin_mode="auto"`` (the largest scatter
+#: the canonical SMF fits reach); override per fit from ``param_bounds``.
 DEFAULT_SIGMA_MAX = 0.6
 
 # SMF target at truth params (-2.0, 0.2): the reference's golden
@@ -57,15 +57,20 @@ def make_smf_data(num_halos=10_000, comm: Optional[MeshComm] = None,
     memory.  ``bin_mode="fused"`` takes the windowed counts with
     ``bin_window`` edges, derived from ``sigma_max`` when only that is
     given (see :func:`~multigrad_tpu_torch.ops.binned.fused_bin_window`).
-    ``"auto"`` (for ``bin_mode`` or ``chunk_size``) is not ported yet."""
-    if bin_mode == "auto" or chunk_size == "auto":
-        raise NotImplementedError(AUTO_NOT_PORTED)
+    ``bin_mode="auto"`` defers the choice to the autotuner's tuning table
+    (:mod:`multigrad_tpu_torch.tune`; resolved at model construction,
+    dense on a cold table); ``sigma_max`` bounds the fused window it may
+    pick (default :data:`DEFAULT_SIGMA_MAX`).  ``chunk_size="auto"``
+    resolves the same way (``None`` cold)."""
     device = resolve_device(device)
     log_mh = torch.log10(load_halo_masses(num_halos, device=device))
     if comm is not None:
         log_mh = scatter_nd(log_mh, axis=0, comm=comm, pad_value=np.inf)
     edges = torch.linspace(9, 10, 11, dtype=torch.float32, device=device)
-    if bin_mode == "fused" and bin_window is None and sigma_max is not None:
+    if bin_mode == "auto" and sigma_max is None:
+        sigma_max = DEFAULT_SIGMA_MAX
+    if bin_mode in ("auto", "fused") and bin_window is None \
+            and sigma_max is not None:
         bin_window = fused_bin_window(edges, float(sigma_max))
     out = dict(
         log_halo_masses=log_mh,
@@ -112,6 +117,20 @@ class SMFModel(OnePointModel):
     """Two-parameter SMF model (parity: ``smf_grad_descent.py:52-82``)."""
 
     aux_data: dict = field(default_factory=dict)
+
+    #: ``chunk_size`` bounds the plain versions' memory on the CPU only;
+    #: the CUDA kernels stream any N, so the tuner enumerates no chunk
+    #: candidates for this model on the card.
+    chunks_on_card = False
+
+    def __post_init__(self):
+        # "auto" knobs (bin_mode / chunk_size) resolve through the
+        # autotuner's tuning table ONCE, here, before any step runs; a
+        # cold table resolves to the hand-set defaults.
+        if isinstance(self.aux_data, dict):
+            from ..tune.resolve import resolve_auto_aux
+            self.aux_data = resolve_auto_aux(
+                type(self).__name__, self.aux_data, self.comm)
 
     def calc_partial_sumstats_from_params(self, params, randkey=None):
         """SMF of this shard's halos — totals sum over shards."""

@@ -43,11 +43,6 @@ import torch.nn.functional as F
 from .erf_kernels import _SQRT2, PAD_VALUE, erf, erf_counts
 from .fused_kernels import erf_counts_fused
 
-#: What ``bin_mode="auto"`` and ``chunk_size="auto"`` raise.
-AUTO_NOT_PORTED = ("bin_mode='auto' and chunk_size='auto' resolve through "
-                   "the autotuner, which is not ported yet (ROADMAP Queue 1 "
-                   "item 9)")
-
 #: |z| beyond which the float32 erf is exactly saturated (it clamps its
 #: argument to [-4, 4]); the fused window half-width is
 #: ``SAT_Z * √2 * sigma``.
@@ -171,12 +166,27 @@ def binned_erf_counts(values, bin_edges, sigma,
     ``"fused"`` only a ``bin_window``-edge window around each one (see the
     module docstring; derive the window with :func:`fused_bin_window`).
     ``chunk_size`` bounds the dense plain (CPU) path's ``(B+1, chunk)``
-    working memory; the CUDA kernels stream any N.  ``"auto"`` (for
-    ``bin_mode`` or ``chunk_size``) resolves through the autotuner, which
-    is not ported yet.
+    working memory; the CUDA kernels stream any N.
+
+    ``bin_mode="auto"`` resolves through the autotuner's tuning table
+    (:func:`multigrad_tpu_torch.tune.resolve.resolve_op_bin_mode`): the
+    tuned mode for this (rows, edges, window) shape on the values'
+    device, or ``"dense"`` on a cold table.  Models resolve ``"auto"``
+    themselves first, at construction; this is the standalone-op
+    fallback.  ``chunk_size="auto"`` resolves only at model construction
+    (:func:`~multigrad_tpu_torch.tune.resolve.resolve_auto_aux`); the op
+    takes an int or None.
     """
-    if bin_mode == "auto" or chunk_size == "auto":
-        raise NotImplementedError(AUTO_NOT_PORTED)
+    if chunk_size == "auto":
+        raise TypeError("chunk_size='auto' resolves at model construction "
+                        "(tune.resolve_auto_aux); binned_erf_counts takes "
+                        "an int or None")
+    if bin_mode == "auto":
+        from ..tune.resolve import resolve_op_bin_mode
+        values = torch.as_tensor(values)
+        bin_mode, bin_window = resolve_op_bin_mode(
+            values.shape[0], torch.as_tensor(bin_edges).shape[0],
+            bin_window, device=values.device)
     if bin_mode not in ("dense", "fused"):
         raise ValueError(f"unknown bin_mode {bin_mode!r}; "
                          "expected 'dense', 'fused' or 'auto'")

@@ -39,6 +39,7 @@ import math
 import torch
 
 from . import cuda_build
+from .kernel_costs import declare_kernel, erf_bwd_ops, erf_fwd_ops
 
 _SQRT2 = 1.4142135623730951
 _INV_SQRT_PI = 0.5641895835477563
@@ -314,7 +315,14 @@ erf_counts_bwd_vec_cuda.launches = 0
 # --------------------------------------------------------------------------
 def erf_counts_fwd(values, edges, sigma, chunk_size=None):
     """Forward counts: the kernel on CUDA tensors, the plain version on
-    CPU tensors (``chunk_size`` bounds the plain version's memory)."""
+    CPU tensors (``chunk_size`` bounds the plain version's memory); on
+    meta tensors, inside the static cost model, the kernel's declared
+    count and an empty result."""
+    if values.is_meta:
+        vec, n, n_edges = sigma.dim() > 0, values.shape[0], edges.shape[0]
+        declare_kernel("erf_counts_fwd_vec" if vec else "erf_counts_fwd",
+                       erf_fwd_ops(n, n_edges, vec), erf=n * n_edges)
+        return torch.empty(n_edges - 1, dtype=torch.float32, device="meta")
     if values.is_cuda:
         if sigma.dim():
             return erf_counts_fwd_vec_cuda(values, edges, sigma)
@@ -324,7 +332,13 @@ def erf_counts_fwd(values, edges, sigma, chunk_size=None):
 
 def erf_counts_bwd(values, edges, sigma, g, chunk_size=None):
     """``(dvalues, dedges, dsigma)``: the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors, the declared count on meta tensors."""
+    if values.is_meta:
+        vec, n, n_edges = sigma.dim() > 0, values.shape[0], edges.shape[0]
+        declare_kernel("erf_counts_bwd_vec" if vec else "erf_counts_bwd",
+                       erf_bwd_ops(n, n_edges, vec), exp=n * n_edges)
+        return (torch.empty_like(values), torch.empty_like(edges),
+                torch.empty_like(sigma))
     if values.is_cuda:
         if sigma.dim():
             return erf_counts_bwd_vec_cuda(values, edges, sigma, g)

@@ -42,6 +42,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .kernel_costs import declare_kernel, fused_bwd_ops, fused_fwd_ops
 from .erf_kernels import (_INV_SQRT_PI, _SQRT2, PAD_VALUE, _erf_f32, _inv,
                           check_sigma_shape)
 
@@ -228,12 +229,20 @@ fused_counts_bwd_cuda.launches = 0
 class FusedCounts(torch.autograd.Function):
     """Fused counts ``(E-1,)`` with the analytic backward of the TPU
     kernel's ``custom_vjp``: ``apply(values, edges, sigma, window)``; the
-    kernels on CUDA tensors, the plain versions on CPU tensors."""
+    kernels on CUDA tensors, the plain versions on CPU tensors, and on
+    meta tensors, inside the static cost model, the kernels' declared
+    counts and empty results."""
 
     @staticmethod
     def forward(ctx, values, edges, sigma, window):
         ctx.save_for_backward(values, edges, sigma)
         ctx.window = window
+        if values.is_meta:
+            n, n_edges = values.shape[0], edges.shape[0]
+            declare_kernel("fused_counts_fwd", fused_fwd_ops(
+                n, n_edges, window, sigma.dim() > 0), erf=n * window)
+            return torch.empty(n_edges - 1, dtype=torch.float32,
+                               device="meta")
         if values.is_cuda:
             return fused_counts_fwd_cuda(values, edges, sigma, window)
         return fused_counts_fwd_plain(values, edges, sigma, window)
@@ -242,48 +251,20 @@ class FusedCounts(torch.autograd.Function):
     def backward(ctx, g):
         values, edges, sigma = ctx.saved_tensors
         need = ctx.needs_input_grad
+        if values.is_meta:
+            n, n_edges = values.shape[0], edges.shape[0]
+            declare_kernel("fused_counts_bwd", fused_bwd_ops(
+                n, n_edges, ctx.window, sigma.dim() > 0),
+                exp=n * ctx.window)
+            return (torch.empty_like(values) if need[0] else None,
+                    torch.empty_like(edges) if need[1] else None,
+                    torch.empty_like(sigma) if need[2] else None, None)
         bwd = fused_counts_bwd_cuda if values.is_cuda \
             else fused_counts_bwd_plain
         dv, de, ds = bwd(values, edges, sigma, ctx.window, g.contiguous(),
                          need_dedges=need[1])
         return (dv if need[0] else None, de,
                 ds.reshape(sigma.shape) if need[2] else None, None)
-
-
-class FusedMasses(torch.autograd.Function):
-    """Window masses ``(W-1, N)``, slot-major, by the plain versions, with
-    the analytic backward: ``apply(values, edges, sigma, start, window)``.
-    A building block of the plain fused counts, on any device."""
-
-    @staticmethod
-    def forward(ctx, values, edges, sigma, start, window):
-        ctx.save_for_backward(values, edges, sigma, start)
-        ctx.window = window
-        return fused_masses_fwd_plain(values, edges, sigma, start, window)
-
-    @staticmethod
-    def backward(ctx, g):
-        from .binned import slot_diagonal_sum, window_rows
-        values, edges, sigma, start = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        dv, dewin, ds = fused_masses_bwd_plain(
-            values, edges, sigma, start, ctx.window, g.contiguous(),
-            need_dewin=need[1])
-        dedges = None
-        if need[1]:
-            # The transpose of the window gather e[s_i + w]: add each
-            # slot's cotangents onto the edges its particles read.
-            dedges = slot_diagonal_sum(
-                window_rows(dewin, start, edges.shape[0]), edges.shape[0])
-        return (dv if need[0] else None, dedges,
-                ds.reshape(sigma.shape) if need[2] else None, None, None)
-
-
-def fused_masses(values, edges, sigma, start, window):
-    """Differentiable window masses, ``(N, W-1)`` (a view of the
-    slot-major ``(W-1, N)`` result) — the port's ``_fused_masses_core``,
-    by the plain versions."""
-    return FusedMasses.apply(values, edges, sigma, start, window).t()
 
 
 def erf_counts_fused(values, bin_edges, sigma, window: int):

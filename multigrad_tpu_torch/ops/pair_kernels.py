@@ -44,6 +44,8 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .kernel_costs import (declare_kernel, pair_bwd_ops, pair_fwd_ops,
+                           pair_rowgrad_ops)
 
 #: The kernels' source under ``csrc/`` (built by :mod:`.cuda_build`).
 SOURCE = "pair_counts.cu"
@@ -296,13 +298,24 @@ class PairCounts(torch.autograd.Function):
 
     The forward keeps its row sums ``R`` when ``w1`` needs a gradient (a
     target computed without one pays nothing), and the backward's ``dw1``
-    is ``g @ R``; a cross-correlation's ``dw2`` sweeps the pairs again."""
+    is ``g @ R``; a cross-correlation's ``dw2`` sweeps the pairs again.
+    On meta tensors, inside the static cost model, the kernels declare
+    their counts (the pairs in the bins' range left out: a floor) and
+    return empty results."""
 
     @staticmethod
     def forward(ctx, pos1, w1, pos2, w2, edges_sq, box, pimax, autocorr,
                 row_chunk):
         keep_rows = ctx.needs_input_grad[1]
-        if pos1.is_cuda:
+        if pos1.is_meta:
+            n1, n_bins = pos1.shape[0], edges_sq.shape[0] - 1
+            declare_kernel("pair_counts_fwd", pair_fwd_ops(
+                n1, pos2.shape[0], n_bins, box is not None))
+            out = torch.empty(n_bins, dtype=torch.float32, device="meta")
+            if keep_rows:
+                out = (out, torch.empty((n_bins, n1), dtype=torch.float32,
+                                        device="meta"))
+        elif pos1.is_cuda:
             out = pair_counts_fwd_cuda(pos1, w1, pos2, w2, edges_sq, box,
                                        pimax, keep_rows)
         else:
@@ -320,6 +333,18 @@ class PairCounts(torch.autograd.Function):
         need = ctx.needs_input_grad
         g = g.to(torch.float32).contiguous()
         dw1 = dw2 = None
+        if pos1.is_meta:
+            n_bins = edges_sq.shape[0] - 1
+            if need[1]:
+                declare_kernel("pair_rowgrad",
+                               pair_rowgrad_ops(pos1.shape[0], n_bins))
+                dw1 = torch.empty_like(w1)
+            if not autocorr and need[3]:
+                declare_kernel("pair_counts_bwd", pair_bwd_ops(
+                    pos2.shape[0], pos1.shape[0], n_bins, box is not None))
+                dw2 = torch.empty_like(w2)
+            return (None, dw1, None, dw1 if autocorr else dw2, None, None,
+                    None, None, None)
         if need[1]:
             dw1 = (pair_rowgrad_cuda(rows, g) if rows.is_cuda
                    else pair_rowgrad_plain(rows, g))

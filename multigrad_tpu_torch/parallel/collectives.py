@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 from .mesh import MeshComm
+from ..ops.kernel_costs import counting_mode
 from ..telemetry.comm import record_collective
 from ..utils.util import pad_to_multiple
 
@@ -103,6 +104,9 @@ def all_gather(value, comm: Optional[MeshComm] = None, axis: int = 0):
         return tensor
     tensor = _on_comm_device(tensor, comm).contiguous()
     record_collective("all_gather", tensor)
+    if tensor.is_meta:              # the static cost model: counted only
+        counting_mode("all_gather")
+        return torch.cat([torch.empty_like(tensor)] * comm.size, dim=axis)
     if dist.get_backend(comm.group) == "nccl":
         stacked = torch.empty((comm.size,) + tuple(tensor.shape),
                               dtype=tensor.dtype, device=tensor.device)
@@ -166,6 +170,9 @@ def _ring_pass(tensor, comm: MeshComm, shift: int):
 
     out = torch.empty_like(tensor)
     record_collective("ppermute", tensor)
+    if tensor.is_meta:              # the static cost model: counted only
+        counting_mode("ring_shift")
+        return out
     ops = [dist.P2POp(dist.isend, tensor.contiguous(), peer(rank + shift),
                       comm.group),
            dist.P2POp(dist.irecv, out, peer(rank - shift), comm.group)]

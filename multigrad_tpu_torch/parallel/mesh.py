@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.kernel_costs import counting_mode
 from ..telemetry.comm import record_collective
 
 
@@ -112,6 +113,9 @@ class MeshComm:
         self._require_member("sum")
         out = value.detach().clone()
         record_collective("psum", out)
+        if out.is_meta:             # the static cost model: counted only
+            counting_mode("psum")
+            return out
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
 

@@ -71,14 +71,6 @@ _OOM_MARKERS = ("resource_exhausted", "out of memory",
                 "hbm_allocator", "allocation failure")
 
 
-#: What ``tuning_table=`` raises: ``buckets="auto"`` is the cold-table
-#: ladder until the port measures its own.
-TUNING_TABLE_NOT_PORTED = (
-    "tuning_table= (buckets='auto' resolved from a measured tuning "
-    "table) is not ported yet: ROADMAP.md Queue 1 item 9, tune/; "
-    "buckets='auto' is DEFAULT_BUCKETS until then")
-
-
 def _is_oom(exc: BaseException) -> bool:
     seen = set()
     while exc is not None and id(exc) not in seen:
@@ -106,10 +98,13 @@ class FitScheduler:
         Quantized batch sizes (sorted ascending internally).  A
         dispatch group of n requests runs in the smallest bucket
         ≥ n; groups larger than the top bucket split across
-        dispatches.  ``"auto"`` (the default) resolves to
-        :data:`DEFAULT_BUCKETS`, the JAX package's cold-table ladder:
-        the port has no autotuner yet (ROADMAP.md Queue 1 item 9), and
-        never reads a tuning table measured for another device.
+        dispatches.  ``"auto"`` (the default) resolves the measured
+        fits/hour ladder from the tuning table
+        (:func:`multigrad_tpu_torch.tune.tune_buckets` writes it, keyed
+        by the model's device: a ladder measured on another device is
+        never read); a cold table resolves to :data:`DEFAULT_BUCKETS`.
+        Workers sharing the kernel-library directory share the table, so
+        a fleet boots tuned.
     max_pending : int
         Queue bound — the backpressure knob (see
         :class:`~multigrad_tpu_torch.serve.queue.FitQueue`).
@@ -145,8 +140,9 @@ class FitScheduler:
         Forwarded to the batched fit, where it has no effect (a host
         loop has no carry to donate).
     tuning_table : TuningTable | str, optional
-        Not ported yet: any value raises ``NotImplementedError``
-        (ROADMAP.md Queue 1 item 9, ``tune/``).
+        Tuning table ``buckets="auto"`` resolves from (default: the table
+        beside the kernel-library directory; see
+        :func:`multigrad_tpu_torch.tune.default_table_path`).
     k_sharded : {"auto", True, False}
         Run bucket dispatches on the sharded-K path (the K axis over a
         replica axis of the mesh).  The port has no replica axis yet
@@ -245,9 +241,8 @@ class FitScheduler:
                 raise ValueError(
                     f"buckets must be a sequence of ints or 'auto', "
                     f"got {buckets!r}")
-            buckets = DEFAULT_BUCKETS
-        if tuning_table is not None:
-            raise NotImplementedError(TUNING_TABLE_NOT_PORTED)
+            from ..tune.resolve import resolve_buckets
+            buckets = resolve_buckets(model, table=tuning_table)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints, got "

@@ -6,7 +6,8 @@ of :mod:`multigrad_tpu.serve.worker`).
 process, its own card: ``--device``, ``cuda`` by default) behind the
 wire protocol of
 :mod:`~multigrad_tpu_torch.serve.wire`: it prints a
-``FLEET-WORKER-READY {json}`` handshake with its port, accepts ONE
+``FLEET-WORKER-READY {json}`` handshake with its port (and the bucket
+ladder its scheduler came up on, ``buckets``), accepts ONE
 router connection, and from then on serves ``submit`` ops, streams
 heartbeats, and answers with ``result`` / ``error`` / ``reject``
 messages.
@@ -123,11 +124,15 @@ def main(argv=None) -> int:
                     help="JSON kwargs for the model factory")
     ap.add_argument("--buckets", default="auto",
                     help="comma list of bucket sizes, or 'auto' "
-                         "(default): the cold-table ladder "
-                         "DEFAULT_BUCKETS, as the scheduler resolves it")
+                         "(default): resolve the measured fits/hour "
+                         "ladder from the shared tuning table — "
+                         "workers sharing the kernel-library directory "
+                         "share the table, so the fleet boots tuned "
+                         "(DEFAULT_BUCKETS on a cold table)")
     ap.add_argument("--tuning-table", default=None,
-                    help="not ported yet: any value raises "
-                         "(ROADMAP.md Queue 1 item 9, tune/)")
+                    help="tuning-table path for --buckets auto "
+                         "(default: beside the kernel-library "
+                         "directory; MGT_TUNING_TABLE overrides)")
     ap.add_argument("--max-pending", type=int, default=1024)
     ap.add_argument("--batch-window-s", type=float, default=0.05)
     ap.add_argument("--heartbeat-s", type=float, default=0.25)
@@ -317,6 +322,7 @@ def main(argv=None) -> int:
         "id": args.worker_id, "pid": os.getpid(),
         "port": srv.getsockname()[1],
         "live_port": live.port if live is not None else None,
+        "buckets": list(sched.buckets),
     }), flush=True)
     conn, _ = srv.accept()
     chan = chan_box["chan"] = JsonlChannel(conn)

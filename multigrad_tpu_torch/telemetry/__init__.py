@@ -29,6 +29,10 @@ One record stream, many sinks:
   (:class:`AlertEngine`, ``alerts=``).
 * :mod:`.report` — ``python -m multigrad_tpu_torch.telemetry.report
   run.jsonl``.
+* :mod:`.costmodel` — :func:`model_cost` / :func:`estimate_program_cost`:
+  operations, transcendentals and bytes of a program counted on meta
+  tensors (the kernels declare their own counts), folded against the
+  card's roofline (:func:`predicted_time_s`, :func:`roofline_record`).
 * :mod:`.profile` — :func:`profiled_fit`: ``torch.profiler`` capture
   scoped to a fit, parsed into per-kernel device time.
 
@@ -75,6 +79,9 @@ from .comm import (CommCounter, leaf_nbytes, measure_model_comm,  # noqa: F401
                    record_collective, traced_comm)
 from .spans import Heartbeat, span  # noqa: F401
 from .profile import profiled_fit, summarize_device_trace  # noqa: F401
+from .costmodel import (ProgramCost, estimate_program_cost,  # noqa: F401
+                        model_cost, predicted_time_s,
+                        roofline_record)
 from .flight import (FlightRecorder, FlightRecorderTripped,  # noqa: F401
                      NonFiniteSentinel)
 from .live import (LiveMetrics, LiveServer, LiveSink,  # noqa: F401
@@ -97,6 +104,8 @@ __all__ = [
     "measure_model_comm", "leaf_nbytes",
     "span", "Heartbeat",
     "profiled_fit", "summarize_device_trace",
+    "ProgramCost", "estimate_program_cost", "model_cost",
+    "predicted_time_s", "roofline_record",
     "FlightRecorder", "FlightRecorderTripped", "NonFiniteSentinel",
     "LiveMetrics", "LiveSink", "LiveServer", "wire_monitoring",
     "AlertEngine", "AlertRule", "LossPlateau", "GradExplosion",

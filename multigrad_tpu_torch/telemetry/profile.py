@@ -28,8 +28,11 @@ machinery, with a counted retry, serves callables:
 A failed capture/parse (an empty trace, a lost lead-in) is recorded on
 the result object (``prof.error``) and in the emitted record instead of
 raised — profiling must never turn a finished fit into an exception.
-``cost=`` (the JAX package's static cost model, which traces jaxprs)
-is not ported yet (ROADMAP Queue 1 item 10) and raises.
+``cost=`` (a :class:`~.costmodel.ProgramCost` of one step) joins the
+measured device time a step against the static cost model's roofline
+prediction for the card: the ``profile`` record gains ``predicted_us``,
+``roofline_frac`` and ``bound``, and a ``roofline`` record
+(:func:`~.costmodel.roofline_record`, with the card's name) follows it.
 """
 from __future__ import annotations
 
@@ -59,10 +62,6 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaMemcpy", "cudaEventSynchronize")
 #: Chrome-trace categories of device work.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-COST_NOT_PORTED = (
-    "profiled_fit(cost=...) needs the static cost model, which traces "
-    "jaxprs and is not ported yet (ROADMAP.md Queue 1 item 10, with "
-    "analysis/)")
 
 
 def measure_rtt_floor(reps: int = 10, device=None) -> float:
@@ -179,12 +178,14 @@ class FitProfile:
     Attributes: ``log_dir`` (the capture directory), ``record`` (the
     emitted ``profile`` telemetry record, also returned even without
     a logger), ``summary`` (the raw :func:`summarize_device_trace`
-    output), ``error`` (capture/parse failure string, else None).
+    output), ``error`` (capture/parse failure string, else None),
+    ``roofline`` (the ``roofline`` record with ``cost=``, else None).
     """
 
     def __init__(self):
         self.log_dir: Optional[str] = None
         self.record: dict = {}
+        self.roofline: Optional[dict] = None
         self.summary: Optional[dict] = None
         self.error: Optional[str] = None
 
@@ -207,8 +208,13 @@ def profiled_fit(logger=None, name: str = "fit",
         Trace directory; default: a fresh private temp dir.
     nsteps : int, optional
         Steps executed inside the block — enables ``per_step_us``.
-    cost
-        Not ported yet (the JAX package's static cost model); raises.
+    cost : ProgramCost, optional
+        Static cost of one step (:func:`.costmodel.model_cost`); joins
+        the measured device time a step against the roofline prediction
+        for the device's :data:`~.costmodel.DEVICE_SPECS` entry
+        (``predicted_us`` / ``roofline_frac`` / ``bound`` land in the
+        record, and a ``roofline`` record is logged).  Requires
+        ``nsteps``.
     rtt : bool
         Measure the floor of one launch plus one read back before the
         capture and record it as ``tunnel_rtt_ms``.
@@ -230,8 +236,6 @@ def profiled_fit(logger=None, name: str = "fit",
     from ..utils.profiling import trace
     from ..utils.util import resolve_device
 
-    if cost is not None:
-        raise NotImplementedError(COST_NOT_PORTED)
     device = resolve_device(device)
     on_card = device.type == "cuda"
     prof = FitProfile()
@@ -270,10 +274,30 @@ def profiled_fit(logger=None, name: str = "fit",
         record["lead_in_kept"] = summary["lead_in_kept"]
         record["sync_calls"] = summary["sync_calls"]
         if nsteps:
-            record["per_step_us"] = round(summary["total_us"] / nsteps, 2)
+            per_step_us = summary["total_us"] / nsteps
+            record["per_step_us"] = round(per_step_us, 2)
+            if cost is not None:
+                from .costmodel import roofline_record
+                roofline = roofline_record(
+                    cost, per_step_us * 1e-6,
+                    device_kind=(torch.cuda.get_device_name(device)
+                                 if on_card else "cpu"),
+                    name=name, nsteps=int(nsteps))
+                record.update({
+                    "predicted_us": round(roofline["predicted_s"] * 1e6, 2),
+                    "roofline_frac": (round(roofline["roofline_frac"], 4)
+                                      if roofline["roofline_frac"]
+                                      is not None else None),
+                    "bound": roofline["bound"],
+                    "flops_per_step": roofline["flops"],
+                    "transcendentals": roofline["transcendentals"],
+                })
+                prof.roofline = roofline
     prof.record = record
     if logger is not None:
         logger.log("profile", **record)
+        if prof.roofline is not None:
+            logger.log("roofline", **prof.roofline)
 
 
 class DeviceWindows:

@@ -526,3 +526,51 @@ def test_streamed_matches_resident_on_card(dev):
     np.testing.assert_allclose(grad_s.cpu().numpy(), grad_r.cpu().numpy(),
                                rtol=1e-4,
                                atol=1e-6 * float(grad_r.abs().max()))
+
+
+def _launch_counts():
+    from multigrad_tpu_torch.ops import pair_kernels as pk
+    return [fn.launches for fn in (
+        ek.erf_counts_fwd_cuda, ek.erf_counts_bwd_cuda,
+        ek.erf_counts_fwd_vec_cuda, ek.erf_counts_bwd_vec_cuda,
+        fk.fused_counts_fwd_cuda, fk.fused_counts_bwd_cuda,
+        pk.pair_counts_fwd_cuda, pk.pair_rowgrad_cuda,
+        pk.pair_counts_bwd_cuda)]
+
+
+def test_model_cost_on_card_runs_nothing(dev):
+    # The static cost model of a model on the card launches no kernel and
+    # takes no memory there; the kernels' counts are the SMF's N·E.
+    from multigrad_tpu_torch.telemetry.costmodel import model_cost
+    n = 1_000_000
+    smf = SMFModel(aux_data=make_smf_data(n, device=dev))
+    hist = GalhaloHistModel(aux_data=make_galhalo_hist_data(
+        200_000, chunk_size=100_000, device=dev))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    allocations = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    cost = model_cost(smf, (-1.0, 0.5))
+    hist_cost = model_cost(hist, np.asarray(HIST_TRUTH))
+    torch.cuda.synchronize()
+    assert _launch_counts() == launches
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == \
+        allocations
+    assert cost.transcendentals["erf"] == cost.transcendentals["exp"] \
+        == n * 11
+    assert hist_cost.flops_by_prim["erf_counts_fwd_vec"] > 0
+
+
+def test_tune_model_on_card_then_warm(dev, tmp_path):
+    from multigrad_tpu_torch.tune import TuningTable, tune_model
+    table = TuningTable(str(tmp_path / "t.json"))
+    model = SMFModel(aux_data=make_smf_data(1_000_000, device=dev))
+    res = tune_model(model, (-1.0, 0.5), sigma_max=0.6, table=table,
+                     reps=1, trial="eval")
+    assert not res.warm and res.n_trials == 2
+    assert "|cuda|" in res.key
+    for c in res.candidates:
+        assert 0 < c["roofline_frac"] <= 1.05, c
+    launches = _launch_counts()
+    again = tune_model(model, (-1.0, 0.5), sigma_max=0.6, table=table)
+    assert again.warm and again.n_trials == 0
+    assert _launch_counts() == launches

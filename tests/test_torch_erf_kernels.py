@@ -126,12 +126,18 @@ def test_per_particle_sigma_not_ported():
                                atol=1e-5)
 
 
-def test_fused_bin_mode_not_ported():
-    # What stays unported is the autotuner's "auto" resolution.
-    for kwargs in (dict(bin_mode="auto"), dict(chunk_size="auto")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            binned_erf_counts(_t(_halo_sample(16)), _t(EDGES), 0.2,
-                              **kwargs)
+def test_fused_bin_mode_not_ported(tmp_path, monkeypatch):
+    # bin_mode="auto" on the op resolves through the tuning table: dense
+    # on a cold table, as in the JAX package.  chunk_size="auto" resolves
+    # only at model construction; the op refuses it (a TypeError, as the
+    # JAX package's op raises one).
+    monkeypatch.setenv("MGT_TUNING_TABLE", str(tmp_path / "missing.json"))
+    vals = _t(_halo_sample(512))
+    np.testing.assert_array_equal(
+        binned_erf_counts(vals, _t(EDGES), 0.2, bin_mode="auto").numpy(),
+        binned_erf_counts(vals, _t(EDGES), 0.2, bin_mode="dense").numpy())
+    with pytest.raises(TypeError, match="model construction"):
+        binned_erf_counts(vals, _t(EDGES), 0.2, chunk_size="auto")
     with pytest.raises(ValueError, match="unknown bin_mode"):
         binned_erf_counts(_t(_halo_sample(16)), _t(EDGES), 0.2,
                           bin_mode="sparse")

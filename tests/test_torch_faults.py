@@ -426,6 +426,28 @@ FLEET_NAMES = [f"{module}.{name}" for module, names in (
                        "render_tenant_rows", "main")))
     for name in names]
 
+#: The autotuner and the static cost model: every public name of each
+#: module.
+TUNE_NAMES = [f"{module}.{name}" for module, names in (
+    ("tune.table", ("TuningTable", "TuningTable.record",
+                    "TuningTable.lookup", "default_table_path", "make_key",
+                    "rows_bucket", "model_shape_key", "catalog_rows",
+                    "device_kind_tag")),
+    ("tune.space", ("model_candidates", "streaming_candidates",
+                    "bucket_candidates", "find_bin_edges")),
+    ("tune.resolve", ("resolve_auto_aux", "resolve_donate_carry",
+                      "resolve_stream_knobs", "resolve_buckets",
+                      "resolve_op_bin_mode", "aux_model_key")),
+    ("tune.tuner", ("TuneResult", "tune_model", "tune_buckets",
+                    "tune_streaming", "within_noise", "measure_rtt",
+                    "model_key")),
+    ("tune.__main__", ("main",)),
+    ("telemetry.costmodel", ("ProgramCost", "ProgramCost.record",
+                             "estimate_program_cost", "model_cost",
+                             "device_spec", "predicted_time_s",
+                             "roofline_record")))
+    for name in names]
+
 #: Differences by design (ROADMAP Queue 3): the port's keyword-only
 #: ``comm`` of ``run_adam_streamed`` (its checkpoint's writer and
 #: barrier) and ``progress`` of ``trange`` (the port's callers turn the
@@ -449,7 +471,8 @@ JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"],
     "inference.ensemble.run_multistart_adam",
     "inference.ensemble.run_multistart_lbfgs", "inference.hmc.run_hmc",
     "parallel.distributed.initialize", "utils.util.simple_grad_descent",
-    "utils.util.trange"] + TELEMETRY_NAMES + SERVE_NAMES + FLEET_NAMES)
+    "utils.util.trange"] + TELEMETRY_NAMES + SERVE_NAMES + FLEET_NAMES
+    + TUNE_NAMES)
 def test_public_signature_matches_the_jax_package(name):
     got = _names(_resolve("multigrad_tpu_torch", name))
     want = _names(_resolve("multigrad_tpu", name))

@@ -26,8 +26,8 @@ from multigrad_tpu.ops import binned as jb
 from multigrad_tpu.ops.pallas_kernels import binned_erf_counts_fused_pallas
 from multigrad_tpu_torch.models import SMFModel, aux_from_numpy
 from multigrad_tpu_torch.ops import binned as tb
+from multigrad_tpu_torch.ops.erf_kernels import _erf_f32
 from multigrad_tpu_torch.ops.fused_kernels import (erf_counts_fused,
-                                                   fused_masses,
                                                    fused_masses_fwd_plain)
 
 EDGES = np.linspace(7.0, 11.75, 41).astype(np.float32)   # bench.py's
@@ -194,12 +194,20 @@ def test_masses_are_slot_major_views():
     vals, sig, _ = _inputs(500, True)
     v, e, s = _t(vals), _t(EDGES), _t(sig)
     start = tb.window_starts(v, e, s, WINDOW)
-    masses = fused_masses(v, e, s, start, WINDOW)
-    assert tuple(masses.shape) == (500, WINDOW - 1)
-    assert masses.t().is_contiguous()
-    np.testing.assert_array_equal(
-        masses.t().numpy(), fused_masses_fwd_plain(v, e, s, start,
-                                                   WINDOW).numpy())
+    masses = fused_masses_fwd_plain(v, e, s, start, WINDOW)
+    assert tuple(masses.shape) == (WINDOW - 1, 500)
+    assert masses.is_contiguous() and tuple(masses.t().shape) == \
+        (500, WINDOW - 1)
+    # Slot w of particle i is its mass between edges start_i + w and
+    # start_i + w + 1: the slots add up to the window's cdf difference.
+    first, last = e[start.long()], e[start.long() + WINDOW - 1]
+
+    def cdf(x):
+        return 0.5 * (1.0 + _erf_f32((x - v) / (np.sqrt(2.0) * s)))
+
+    np.testing.assert_allclose(masses.sum(dim=0).numpy(),
+                               (cdf(last) - cdf(first)).numpy(),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_fused_error_cases():

@@ -118,11 +118,12 @@ def test_bwd_plain_without_edges(vec):
 
 @pytest.mark.parametrize("vec", [False, True])
 def test_fused_masses_match_jax_core(vec):
-    # The masses-level building block (FusedMasses, the plain versions with
-    # the analytic backward) against the Pallas kernel behind
+    # The masses-level building blocks (fused_masses_fwd_plain and
+    # fused_masses_bwd_plain, slot-major) against the Pallas kernel behind
     # _fused_masses_core: the (N, W-1) masses, and the gradients in the
-    # values, sigma and the edges (JAX's per-slot edge cotangent added onto
-    # the edges it read).
+    # values, sigma and the window's edges, and JAX's per-slot edge
+    # cotangent added onto the edges it read against the port's scatter
+    # of it (window_rows and slot_diagonal_sum).
     from multigrad_tpu.ops.pallas_kernels import _fused_masses_core
     vals, sig, _ = _inputs(2000, vec, n_inf=5)
     start = tb.window_starts(torch.clamp(_t(vals), -1e18, 1e18), _t(EDGES),
@@ -141,13 +142,17 @@ def test_fused_masses_match_jax_core(vec):
                                              jnp.asarray(sig))
     ge = np.zeros(EDGES.shape, np.float64)
     np.add.at(ge, offs, np.asarray(gw, np.float64))
-    v, e = _t(vals).requires_grad_(), _t(EDGES).requires_grad_()
-    s = _t(sig).requires_grad_()
-    got = fk.fused_masses(v, e, s, _t(start), WINDOW)
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+    v, e, s, st = _t(vals), _t(EDGES), _t(sig), _t(start)
+    got = fk.fused_masses_fwd_plain(v, e, s, st, WINDOW).t()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-5, atol=1e-6)
-    (got * _t(cot)).sum().backward()
-    for ref, g in ((gv, v.grad), (ge, e.grad), (gs, s.grad)):
+    dv, dewin, ds = fk.fused_masses_bwd_plain(
+        v, e, s, st, WINDOW, _t(cot).t().contiguous(), need_dewin=True)
+    np.testing.assert_allclose(dewin.t().numpy(), np.asarray(gw),
+                               rtol=1e-3, atol=1e-5)
+    de = tb.slot_diagonal_sum(tb.window_rows(dewin, st, EDGES.shape[0]),
+                              EDGES.shape[0])
+    for ref, g in ((gv, dv), (ge, de), (gs, ds.reshape(np.shape(sig)))):
         assert tuple(g.shape) == np.shape(ref)
         np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=1e-3,
                                    atol=1e-5)

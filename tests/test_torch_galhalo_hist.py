@@ -288,10 +288,26 @@ def test_array_obs_indices_normalized_by_model():
     assert single.aux_data["obs_indices"] == (15,)
 
 
-def test_auto_knobs_not_ported():
-    for kwargs in (dict(bin_mode="auto"), dict(chunk_size="auto")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            make_galhalo_hist_data(100, device="cpu", **kwargs)
+def test_auto_knobs_not_ported(tmp_path, monkeypatch):
+    # "auto" resolves through the tuning table at construction: on a cold
+    # table to the JAX package's hand-set defaults on the same data (the
+    # window derived from the default sigma_max kept), and the target is
+    # the dense one.
+    monkeypatch.setenv("MGT_TUNING_TABLE", str(tmp_path / "missing.json"))
+    knobs = ("bin_mode", "bin_window", "chunk_size", "sigma_max")
+    for kwargs in (dict(bin_mode="auto"), dict(chunk_size="auto"),
+                   dict(bin_mode="auto", chunk_size="auto")):
+        got = GalhaloHistModel(aux_data=make_galhalo_hist_data(
+            100, device="cpu", **kwargs)).aux_data
+        want = jh.GalhaloHistModel(aux_data=jh.make_galhalo_hist_data(
+            100, **kwargs)).aux_data
+        assert {k: got.get(k) for k in knobs} == \
+            {k: want.get(k) for k in knobs}
+        assert got["bin_mode"] == "dense" and got["chunk_size"] is None
+        np.testing.assert_array_equal(
+            got["target_sumstats"].numpy(),
+            make_galhalo_hist_data(100, device="cpu")["target_sumstats"]
+            .numpy())
     aux = make_galhalo_hist_data(100, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        GalhaloHistModel(aux_data=dict(aux, bin_mode="auto"))
+    model = GalhaloHistModel(aux_data=dict(aux, bin_mode="auto"))
+    assert model.aux_data["bin_mode"] == "dense"

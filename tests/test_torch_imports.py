@@ -27,6 +27,7 @@ def _python_files():
     yield os.path.join(REPO_ROOT, "tools", "telemetry_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "serve_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "fleet_smf.py")
+    yield os.path.join(REPO_ROOT, "tools", "tune_smf.py")
 
 
 def _imported_roots(path):
@@ -83,6 +84,9 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.telemetry.resources\n"
         "import multigrad_tpu_torch.utils.lockdep\n"
         "import multigrad_tpu_torch.utils.testing\n"
+        "import multigrad_tpu_torch.telemetry.costmodel\n"
+        "import multigrad_tpu_torch.ops.kernel_costs\n"
+        "import multigrad_tpu_torch.tune, multigrad_tpu_torch.tune.__main__\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -128,7 +132,12 @@ def test_no_forbidden_import_in_sources():
                 "compile_cache", "scheduler", "wire", "worker", "fleet",
                 "chaos", "stages", "jobs")),
             "_lockdep.py", os.path.join("utils", "lockdep.py"),
-            os.path.join("utils", "testing.py")} <= names
+            os.path.join("utils", "testing.py"),
+            os.path.join("telemetry", "costmodel.py"),
+            os.path.join("ops", "kernel_costs.py"),
+            *(os.path.join("tune", f"{m}.py") for m in (
+                "__init__", "__main__", "table", "space", "resolve",
+                "tuner"))} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -147,7 +156,8 @@ def test_no_forbidden_import_in_sources():
                                    "run_lbfgs_scan", "run_multistart_lbfgs",
                                    "run_adam", "run_adam_scan",
                                    "initialize", "profiled_fit",
-                                   "measure_model_comm", "build_model"])
+                                   "measure_model_comm", "build_model",
+                                   "tune_cli"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
@@ -167,6 +177,7 @@ def test_default_device_is_cuda(entry):
                                             make_xi_data)
     from multigrad_tpu_torch.optim.transforms import bounds_to_arrays
     from multigrad_tpu_torch.serve.worker import build_model
+    from multigrad_tpu_torch.tune.__main__ import main as tune_main
     from multigrad_tpu_torch.utils.util import resolve_device
     call = {"make_smf_data": lambda: make_smf_data(100),
             "resolve_device": resolve_device,
@@ -219,6 +230,8 @@ def test_default_device_is_cuda(entry):
                 SMFModel(aux_data={"volume": 1.0}), [-2.0, 0.2]),
             # The worker's model: on the card unless --device says not.
             "build_model": lambda: build_model("smf", {"num_halos": 100}),
+            # The tuner's CLI: its model and trials on the card.
+            "tune_cli": lambda: tune_main(["--num-halos", "100"]),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

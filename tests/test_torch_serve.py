@@ -440,11 +440,14 @@ def test_fitconfig_validation_matches_jax():
 # ------------------------------------------------------------------ #
 # ladder: "auto", the tuning table, sharded K, the memory budget
 # ------------------------------------------------------------------ #
-def test_bucket_ladder_resolution(local_model):
+def test_bucket_ladder_resolution(local_model, tmp_path, monkeypatch):
+    # "auto" resolves from the tuning table; cold, DEFAULT_BUCKETS.
+    monkeypatch.setenv("MGT_TUNING_TABLE", str(tmp_path / "missing.json"))
     with FitScheduler(local_model, start=False) as sched:
         assert sched.buckets == DEFAULT_BUCKETS == (1, 4, 16, 64)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FitScheduler(local_model, tuning_table="table.json", start=False)
+    with FitScheduler(local_model, tuning_table=str(tmp_path / "t.json"),
+                      start=False) as sched:
+        assert sched.buckets == DEFAULT_BUCKETS
     with pytest.raises(NotImplementedError, match="item 6"):
         FitScheduler(local_model, k_sharded=True, start=False)
     with pytest.raises(ValueError):

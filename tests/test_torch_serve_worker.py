@@ -284,10 +284,20 @@ def test_worker_drains_on_sigterm(tmp_path):
 
 
 def test_worker_refuses_a_tuning_table(tmp_path):
-    proc = _start(tmp_path, "--tuning-table", str(tmp_path / "t.json"))
+    # --tuning-table with --buckets auto: the worker's scheduler comes up
+    # on the ladder the table holds for its model, and the READY
+    # handshake reports it.
+    from multigrad_tpu_torch.tune import TuningTable
+    from multigrad_tpu_torch.tune.resolve import buckets_key
+    table = str(tmp_path / "t.json")
+    model = build_model("smf", {"num_halos": N_HALOS}, device="cpu")
+    TuningTable(table).record(buckets_key(model), {"buckets": [1, 2, 8]})
+    proc = _start(tmp_path, "--buckets", "auto", "--tuning-table", table)
     try:
-        _, err = proc.communicate(timeout=WAIT_S)
-        assert proc.returncode != 0
-        assert "NotImplementedError" in err and "item 9" in err
+        info, chan = _ready(proc)
+        assert info["buckets"] == [1, 2, 8]
+        chan.send({"op": "drain"})
+        assert _until(chan, ("drained",))[-1]["op"] == "drained"
+        assert proc.wait(timeout=WAIT_S) == 0
     finally:
         _stop(proc)

@@ -505,10 +505,18 @@ def test_streaming_model_validates():
 
 
 @pytest.mark.parametrize("knob", ["chunk_rows", "remat_policy"])
-def test_streaming_auto_is_not_ported(knob):
-    kwargs = {"chunk_rows": CHUNK_ROWS, knob: "auto"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _streaming(**kwargs)
+def test_streaming_auto_is_not_ported(knob, tmp_path, monkeypatch):
+    # "auto" resolves through the tuning table at construction; a cold
+    # table gives the JAX package's defaults: min(n_rows, 2**20) rows a
+    # chunk and the "dots" policy.
+    monkeypatch.setenv("MGT_TUNING_TABLE", str(tmp_path / "missing.json"))
+    kwargs = {"chunk_rows": CHUNK_ROWS, "remat_policy": "nothing",
+              knob: "auto"}
+    sm = _streaming(**kwargs)
+    want = {"chunk_rows": min(sm.n_rows, 1 << 20), "remat_policy": "dots"}
+    assert getattr(sm, knob) == want[knob]
+    other = "remat_policy" if knob == "chunk_rows" else "chunk_rows"
+    assert getattr(sm, other) == kwargs[other]
 
 
 def test_replace_aux_rebinds():

@@ -662,9 +662,20 @@ def test_profiled_fit_on_the_cpu(tmp_path):
                                                rel=1e-3)
     assert rec["tunnel_rtt_ms"] > 0 and rec["top_ops"]
     assert events(sink, "profile")[0]["wall_s"] == rec["wall_s"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        with telemetry.profiled_fit(cost=object(), device=CPU):
-            pass
+    # cost=: the step's static cost joined against the measured step.
+    cost = telemetry.model_cost(model, GUESS)
+    logger, sink = new_logger()
+    with telemetry.profiled_fit(logger, nsteps=3, log_dir=str(tmp_path),
+                                cost=cost, device=CPU) as prof:
+        model.run_adam(guess=GUESS, nsteps=3, progress=False)
+    rec = prof.record
+    (roof,) = events(sink, "roofline")
+    assert roof["device_kind"] == "cpu" and roof["nsteps"] == 3
+    assert roof["measured_s"] == pytest.approx(rec["per_step_us"] * 1e-6,
+                                               rel=1e-3)
+    assert rec["roofline_frac"] == round(roof["roofline_frac"], 4)
+    assert rec["bound"] == roof["bound"] and rec["predicted_us"] > 0
+    assert roof["transcendentals"]["erf"] == 2_048 * 11
 
 
 if __name__ == "__main__":
