@@ -388,16 +388,16 @@ JOB_STAGES = ("scan", "ensemble", "laplace", "hmc", "check")
 # of HIST_CHUNK with 41 edges and six epochs, in the two sigma regimes of
 # tests/test_tune.py:116-167, TUNE_REGIMES = (tag, (sigma_0, sigma_slope)
 # or TRUTH's, sigma_max), trials of one loss and gradient, best of
-# TUNE_REPS, of the default and the TUNE_TOP_K - 1 best predicted (a
-# third, fused in chunks of 2^18, measured 3.2–7.0 s a trial and never
-# won); the SMF ladder over TUNE_BUCKETS at TUNE_BUCKET_STEPS steps; a
+# TUNE_REPS, of every bin mode at the default chunk (the static count ranks
+# chunk sizes by a hair, while on the card a chunk's time goes to cumsum
+# and host work it does not see); the SMF ladder over TUNE_BUCKETS at TUNE_BUCKET_STEPS steps; a
 # served burst of TUNE_BURST fits of TUNE_BURST_STEPS steps on it; the
 # streamed chunk rows around STREAM_CHUNK, TUNE_STREAM_STEPS steps a trial.
 # A measured time below the static prediction by more than ROOFLINE_MAX
 # means the count is short; a fused winner's counts stay within
 # COUNT_RTOL of the dense ones (PERF.md section 2's kernel limit).
 TUNE_REGIMES = (("sigma005", (0.05, -0.005), 0.08), ("sigma02", None, 0.32))
-TUNE_REPS, TUNE_TOP_K = 2, 2
+TUNE_REPS = 2
 TUNE_BUCKETS, TUNE_BUCKET_STEPS = (1, 2, 4, 8, 16), 20
 TUNE_BURST, TUNE_BURST_STEPS = 4, 20
 TUNE_STREAM_STEPS = 2
@@ -1270,13 +1270,10 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
     # Profiler windows: 5 steps with a record every step, and without.
     # The trace must hold every erf launch the wrappers counted: a window
     # whose trace lost one (the profiler drops device events late in a
-    # long session) runs again, counted, up to WINDOW_ATTEMPTS in all.  So
-    # does a monitored window whose device time an evaluation falls more
-    # than PER_STEP_RTOL below phase 5's: monitoring adds device work and
-    # cannot remove it, so a shorter trace is a trace that lost events
-    # (seen once: every kernel's events ~10% short, 143 of the 256 lead-in
-    # spins kept).  A window above phase 5's by more than that fails at
-    # once, as before.
+    # long session) runs again, counted, up to WINDOW_ATTEMPTS in all.  A
+    # window that holds every launch is not run again, whatever its device
+    # time: the check against phase 5's below then decides, and its message
+    # gives each kernel's device us a launch in both windows.
     from multigrad_tpu_torch.telemetry.profile import WINDOW_ATTEMPTS
     window_retries = {False: 0, True: 0}
 
@@ -1303,9 +1300,7 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
             traced = {stem: sum(o["count"] for o in rec["top_ops"]
                                 if stem in o["op"])
                       for stem in ("erf_fwd_kernel", "erf_bwd_kernel")}
-            short = monitored and \
-                rec["per_step_us"] < (1 - PER_STEP_RTOL) * smf_busy_us
-            if set(traced.values()) == {nsteps} and not short:
+            if set(traced.values()) == {nsteps}:
                 break
             window_retries[monitored] += 1
             log(f"profile, {'monitored' if monitored else 'plain'}, attempt "
@@ -1326,15 +1321,22 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
         return rec
 
     plain, mon = window(False), window(True)
-    log(f"profile windows run again for lost events: plain "
+    log(f"profile windows run again for lost erf events: plain "
         f"{window_retries[False]}, monitored {window_retries[True]}")
     check("erf_fwd_kernel" in mon["top_ops"][0]["op"]
           and "erf_bwd_kernel" in mon["top_ops"][1]["op"],
           f"the monitored window's top ops: {mon['top_ops'][:3]}")
+    def per_launch_us(rec):
+        return {stem: [round(o["us"] / o["count"], 1) for o in rec["top_ops"]
+                       if stem in o["op"] and o["count"]]
+                for stem in ("erf_fwd_kernel", "erf_bwd_kernel")}
+
     off = mon["per_step_us"] / smf_busy_us - 1
     check(abs(off) <= PER_STEP_RTOL, f"monitored device us a step "
           f"{mon['per_step_us']} against phase 5's {smf_busy_us:.2f} "
-          f"({100 * off:+.2f}%)")
+          f"({100 * off:+.2f}%); device us a launch, monitored "
+          f"{per_launch_us(mon)}, plain {per_launch_us(plain)}; lead-in kept "
+          f"{mon['lead_in_kept']}, plain {plain['lead_in_kept']}")
     added = {name: mon["sync_calls"][name] - plain["sync_calls"][name]
              for name in SYNC_CALLS}
     check(not any(added.values()), f"monitored steps added synchronizing "
@@ -2615,8 +2617,9 @@ def tune_phase(reset_launches, read_launches, wrappers, t_start,
                                                profiled_fit)
     from multigrad_tpu_torch.telemetry.costmodel import (model_cost,
                                                          roofline_record)
-    from multigrad_tpu_torch.tune import (TuningTable, tune_buckets,
-                                          tune_model, tune_streaming)
+    from multigrad_tpu_torch.tune import (TuningTable, model_candidates,
+                                          tune_buckets, tune_model,
+                                          tune_streaming)
 
     on_card = torch.device(device).type == "cuda"
     card = torch.cuda.get_device_name(0) if on_card else "cpu"
@@ -2744,9 +2747,13 @@ def tune_phase(reset_launches, read_launches, wrappers, t_start,
             params = np.asarray(HIST_TRUTH, np.float64)
             if sigma is not None:
                 params[8], params[9] = sigma
+            cands = [c for c in model_candidates(
+                hist, params, sigma_max=sigma_max)
+                if c["chunk_size"] == hist_chunk]
             res, seconds, launches = counted_here(lambda: tune_model(
                 hist, params, sigma_max=sigma_max, table=table,
-                top_k=TUNE_TOP_K, reps=TUNE_REPS, trial="eval"))
+                top_k=len(cands), reps=TUNE_REPS, trial="eval",
+                candidates=cands))
             for c in res.candidates:
                 log(f"tune {tag}: {c['knobs']} predicted "
                     f"{c['predicted_s']} s, measured {c['measured_s']} s, "
@@ -2814,7 +2821,7 @@ def tune_phase(reset_launches, read_launches, wrappers, t_start,
         for tag, (res, params, sigma_max) in tuned.items():
             warm, _, launches = counted_here(lambda: tune_model(
                 hist, params, sigma_max=sigma_max, table=table,
-                top_k=TUNE_TOP_K, reps=TUNE_REPS, trial="eval"))
+                reps=TUNE_REPS, trial="eval"))
             log(f"tune {tag} again: warm={warm.warm} trials="
                 f"{warm.n_trials} launches {launches}")
             check(warm.warm and warm.n_trials == 0 and launches == zero
