@@ -127,7 +127,11 @@ order:
     ``distributed.initialize()`` (an NCCL group, the process on card 0; a
     second call a no-op), ``global_comm()`` and ``hybrid_comm()``,
     ``scatter_nd(..., return_pad_count=True)`` (0 on an even axis),
-    ``reduce_sum`` of a Python float (a float back); phase 5's SMF Adam
+    ``reduce_sum`` of a Python float (a float back), ``MeshComm``'s
+    ``pmean``, ``pmax``, ``pmin``, ``all_gather`` (tiled, and stacked on a
+    new axis 0 and 1) and ``axis_index`` on card tensors (each the
+    one-process identity, on the card, its bytes recorded under the JAX op
+    name; the axis index an int32 0 that records nothing); phase 5's SMF Adam
     fit with the comm (20 steps at 1e8 halos), steps/s beside phase 5's,
     2 all-reduces a step counted, 20 launches of each kernel, the
     trajectory equal to phase 5's bit for bit (a one-process all-reduce is
@@ -144,7 +148,9 @@ order:
     model's loss and gradient); ``profiled_fit`` windows of 5 steps with a
     record every step and without: device time an evaluation within 5% of
     phase 5's a step, the erf kernels leading, no synchronizing runtime
-    call added; the NaN trips (an impossible target at 1e8 and at 32,768
+    call added, the card's SM and memory clocks, power draw and throttle
+    reasons read at each window's edges (logged, in the failure message
+    and in the phase's result); the NaN trips (an impossible target at 1e8 and at 32,768
     halos, card and CPU; a loss that turns NaN at step 4, card and CPU):
     same steps, bundles written; then phase 20's HMC run for 50 + 100 draws
     with a record every 25 (the last record's divergences the run's), and
@@ -224,7 +230,21 @@ order:
     bit for bit; ``python -m multigrad_tpu_torch.tune`` at 1e8 twice
     (``TUNE OK``, the second ``warm=True trials=0``); and
     ``profiled_fit(cost=model_cost(...))`` over 5 SMF steps, its
-    ``roofline`` record at most 1.05.
+    ``roofline`` record at most 1.05;
+27. the static analysis (``multigrad_tpu_torch.analysis``) under a
+    one-process NCCL group: the SMF program's collective sites (psums of
+    40 and 8 bytes); ``check_shard_safety`` of the SMF model at 1e8
+    halos, of the history model at 1e8 in chunks of 1e6, dense and fused
+    (``kinds=("loss_and_grad",)``), of the joint model at 1e8 + 1e5, of a
+    ``(16, 2)`` ``batched_loss_and_grad`` program with ``k_scale=2`` and
+    of the streamed SMF model at 1e8 in chunks of 2^22: each clean, no
+    kernel launched and no card memory allocated across them, the host
+    seconds of each; a model that all-gathers its catalog caught by
+    comm-scaling with this file as its site; one loss and gradient of the
+    analyzed SMF model equal to phase 5's bit for bit (one launch each of
+    kernels 1 and 2); ``python -m multigrad_tpu_torch.analysis.lint
+    --device cuda --json`` in a subprocess under its own one-process
+    group: exit 0, no finding.
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
@@ -235,7 +255,8 @@ device time per launch in its path's profiler window;
 polish of phase 19, phases 20 and 21, phase 22's monitored fit and phase
 23's burst; ``launches_fleet`` its launches in phase 24's workers,
 ``launches_job`` phase 25's, workers and this process, and
-``launches_tune`` phase 26's in this process), the ``nvidia-smi`` line,
+``launches_tune`` phase 26's in this process, ``launches_analysis``
+phase 27's), the ``nvidia-smi`` line,
 and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -1106,6 +1127,7 @@ def nccl_phase(reset_launches, read_launches, wrappers, smf_ref,
         total = reduce_sum(1.25, comm=comm)
         check(type(total) is float and total == 1.25,
               f"reduce_sum of a host float under NCCL: {total!r}")
+        mesh_comm_collectives(comm)
         model = SMFModel(aux_data=make_smf_data(BIG_HALOS, comm=comm),
                          comm=comm)
         model.run_adam(guess=GUESS, nsteps=2, learning_rate=0.02,
@@ -1143,6 +1165,59 @@ def nccl_phase(reset_launches, read_launches, wrappers, smf_ref,
     check(not dist.is_initialized(), "the process group outlived phase 21")
     return dict(sps=sps, all_reduces=len(sizes), launches=launches,
                 under_group=extra)
+
+
+def mesh_comm_collectives(comm):
+    """Phase 21: ``MeshComm``'s ``pmean``, ``pmax``, ``pmin``,
+    ``all_gather`` (tiled, and stacked on a new axis 0 and 1) and
+    ``axis_index`` on card tensors under the one-process NCCL group: each
+    the one-process identity, on the card, recorded under the JAX op name
+    with its input's bytes (the axis index records nothing)."""
+    import torch
+    from multigrad_tpu_torch.telemetry.comm import CommCounter
+    v = torch.arange(6.0, device="cuda").reshape(2, 3) - 2.5
+    with CommCounter() as cc:
+        out = dict(pmean=comm.pmean(v), pmax=comm.pmax(v),
+                   pmin=comm.pmin(v), all_gather=comm.all_gather(v),
+                   stacked=comm.all_gather(v, tiled=False),
+                   stacked1=comm.all_gather(v, axis=1, tiled=False))
+        index = comm.axis_index()
+    torch.cuda.synchronize()
+    want = dict(pmean=v, pmax=v, pmin=v, all_gather=v, stacked=v[None],
+                stacked1=v[:, None])
+    for name, got in out.items():
+        check(got.is_cuda and got.shape == want[name].shape
+              and torch.equal(got, want[name]),
+              f"MeshComm {name} under NCCL: {got} (want {want[name]})")
+    check(index.is_cuda and index.dtype == torch.int32 and int(index) == 0,
+          f"MeshComm.axis_index under NCCL: {index}")
+    nbytes = v.numel() * v.element_size()
+    check(cc.calls == {"pmean": 1, "pmax": 1, "pmin": 1, "all_gather": 3}
+          and cc.bytes == {"pmean": nbytes, "pmax": nbytes, "pmin": nbytes,
+                           "all_gather": 3 * nbytes},
+          f"the collectives' records: calls {cc.calls}, bytes {cc.bytes}")
+    log(f"MeshComm under NCCL: pmean, pmax, pmin, all_gather (tiled, "
+        f"stacked on axes 0 and 1) the identity on the card, axis_index "
+        f"{int(index)}; recorded calls {cc.calls}, bytes {cc.bytes}")
+
+
+def gpu_state():
+    """The card's SM and memory clocks, power draw and active throttle
+    reasons, as ``nvidia-smi`` reads them now (the field of the reasons is
+    ``clocks_event_reasons.active`` where ``nvidia-smi`` knows it, else
+    ``clocks_throttle_reasons.active``)."""
+    for reasons in ("clocks_event_reasons.active",
+                    "clocks_throttle_reasons.active"):
+        fields = f"clocks.sm,clocks.mem,power.draw,{reasons}"
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True)
+        if out.returncode == 0 and out.stdout.strip():
+            values = [v.strip() for v in
+                      out.stdout.strip().splitlines()[0].split(",")]
+            return dict(zip(("clocks_sm", "clocks_mem", "power_draw",
+                             "throttle_reasons"), values))
+    return {"error": (out.stderr or out.stdout).strip()[:200]}
 
 
 def get(url):
@@ -1276,6 +1351,9 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
     # gives each kernel's device us a launch in both windows.
     from multigrad_tpu_torch.telemetry.profile import WINDOW_ATTEMPTS
     window_retries = {False: 0, True: 0}
+    # The card's clocks, power and throttle reasons at each window's
+    # edges: a short window on a card held below its clocks reads long.
+    card_state = {}
 
     def window(monitored):
         kw, nsteps = {}, PROFILE_STEPS
@@ -1288,12 +1366,17 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
                           flight=kw_recorder, diagnostics=True)
             torch.cuda.synchronize()
             reset_launches()
+            before = gpu_state()
             with profiled_fit(name="monitored" if monitored else "plain",
                               nsteps=nsteps, top=64) as prof:
                 model.run_adam(guess=GUESS, nsteps=PROFILE_STEPS,
                                learning_rate=0.02, progress=False, **kw)
+            after = gpu_state()
             launched = read_launches()
             rec = prof.record
+            card_state.setdefault(
+                "monitored" if monitored else "plain", []).append(
+                dict(attempt=attempt, before=before, after=after))
             check("error" not in rec, f"profile record: {rec}")
             check(launched["erf_counts_fwd"] == launched["erf_counts_bwd"]
                   == nsteps, f"launches in the profiled window: {launched}")
@@ -1310,7 +1393,8 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
                 f"5's {smf_busy_us:.2f}); lead-in kept "
                 f"{rec['lead_in_kept']}")
         check(set(traced.values()) == {nsteps}, f"the profiler lost erf "
-              f"kernel events in {WINDOW_ATTEMPTS} windows: {traced}")
+              f"kernel events in {WINDOW_ATTEMPTS} windows: {traced}; the "
+              f"card at the windows' edges {json.dumps(card_state)}")
         log(f"profile, {'monitored' if monitored else 'plain'} "
             f"{PROFILE_STEPS} steps: {rec['per_step_us']:.2f} device us an "
             f"evaluation, wall {rec['wall_s']:.4f} s, device share "
@@ -1323,6 +1407,8 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
     plain, mon = window(False), window(True)
     log(f"profile windows run again for lost erf events: plain "
         f"{window_retries[False]}, monitored {window_retries[True]}")
+    log("profile windows, the card at their edges: "
+        + json.dumps(card_state))
     check("erf_fwd_kernel" in mon["top_ops"][0]["op"]
           and "erf_bwd_kernel" in mon["top_ops"][1]["op"],
           f"the monitored window's top ops: {mon['top_ops'][:3]}")
@@ -1336,7 +1422,8 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
           f"{mon['per_step_us']} against phase 5's {smf_busy_us:.2f} "
           f"({100 * off:+.2f}%); device us a launch, monitored "
           f"{per_launch_us(mon)}, plain {per_launch_us(plain)}; lead-in kept "
-          f"{mon['lead_in_kept']}, plain {plain['lead_in_kept']}")
+          f"{mon['lead_in_kept']}, plain {plain['lead_in_kept']}; the card "
+          f"at the windows' edges {json.dumps(card_state)}")
     added = {name: mon["sync_calls"][name] - plain["sync_calls"][name]
              for name in SYNC_CALLS}
     check(not any(added.values()), f"monitored steps added synchronizing "
@@ -1383,7 +1470,8 @@ def monitored_smf_phase(reset_launches, read_launches, wrappers, model,
     return dict(sps=sps, seconds=seconds, launches=launches,
                 steps_sps=steps_sps, turns=turns, profile_plain=plain,
                 profile_monitored=mon, per_step_off=off, sync_added=added,
-                window_retries=window_retries, nan=nan)
+                window_retries=window_retries, card_state=card_state,
+                nan=nan)
 
 
 def tapped_hmc_phase(model, start, hmc_dps):
@@ -3005,6 +3093,208 @@ def tune_phase(reset_launches, read_launches, wrappers, t_start,
     return out
 
 
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def analysis_phase(reset_launches, read_launches, wrappers, smf_ref,
+                   fused_kwargs, t_start, device="cuda", big=BIG_HALOS,
+                   hist_chunk=HIST_CHUNK, pair_halos=PAIR_HALOS,
+                   stream_chunk=STREAM_CHUNK):
+    """Phase 27, the static analysis (``multigrad_tpu_torch.analysis``) on
+    models that live on the card, under a one-process NCCL group so that
+    the comm records its payloads: ``check_shard_safety`` of the SMF model
+    at ``big`` halos, of the history model at ``big`` in chunks of
+    ``hist_chunk``, dense and fused (``kinds=("loss_and_grad",)``), of the
+    joint model at ``big`` + ``pair_halos``, of a ``(16, 2)``
+    ``batched_loss_and_grad`` program with ``k_scale=2`` and of the
+    streamed SMF model at ``big`` in chunks of ``stream_chunk``: each
+    ``[]``, the SMF psums' 40 and 8 bytes seen, no kernel launched and no
+    card memory allocated across them, the host seconds of each.  A
+    model that all-gathers its catalog is caught by comm-scaling with this
+    file as the site.  Then one loss and gradient of the analyzed SMF
+    model, bit-equal to phase 5's (one launch each of kernels 1 and 2),
+    and ``python -m multigrad_tpu_torch.analysis.lint`` in a subprocess
+    under its own one-process group: exit 0, no finding.  On the CPU
+    (``device="cpu"``, small sizes, gloo) it rehearses the same checks;
+    ``smf_ref`` then holds the CPU model's loss and gradient."""
+    import gc
+    from dataclasses import dataclass, field
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from multigrad_tpu_torch import OnePointModel, StreamingOnePointModel
+    from multigrad_tpu_torch.analysis import (analyze_model,
+                                              collect_collectives,
+                                              trace_program)
+    from multigrad_tpu_torch.models import (GalhaloHistModel, SMFModel,
+                                            make_galhalo_hist_data,
+                                            make_joint_smf_wprp,
+                                            make_smf_data)
+    from multigrad_tpu_torch.models.galhalo_hist import TRUTH as HIST_TRUTH
+    from multigrad_tpu_torch.parallel.mesh import global_comm
+    from multigrad_tpu_torch.telemetry.costmodel import (_program,
+                                                         meta_params)
+
+    on_card = torch.device(device).type == "cuda"
+    zero = dict.fromkeys(wrappers, 0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def allocations():
+        return torch.cuda.memory_stats()["allocation.all.allocated"] \
+            if on_card else 0
+
+    def allocated():
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    @dataclass
+    class GatherModel(OnePointModel):
+        """BROKEN: all-gathers its catalog, an O(data) collective."""
+
+        aux_data: dict = field(default_factory=dict)
+
+        def calc_partial_sumstats_from_params(self, params, randkey=None):
+            full = self.comm.all_gather(self.aux_data["x"])
+            return torch.stack([torch.sum(full * params[0]),
+                                torch.sum(params)])
+
+        def calc_loss_from_sumstats(self, sumstats, sumstats_aux=None,
+                                    randkey=None):
+            return torch.sum(sumstats ** 2)
+
+    check(not dist.is_initialized(), "a process group before phase 27")
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if on_card else "gloo",
+        init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    out = dict(seconds={})
+    try:
+        comm = global_comm()
+        smf = SMFModel(aux_data=make_smf_data(big, comm=comm, device=device),
+                       comm=comm)
+        sites = [(c.op, c.executed_bytes) for c in collect_collectives(
+            trace_program(_program(smf, "loss_and_grad", False),
+                          meta_params(GUESS), smf.aux_leaves(), None))]
+        log(f"analysis: SMF loss_and_grad at {big:,} halos, collective "
+            f"sites {sites}")
+        check(sites == [("psum", 40), ("psum", 8)],
+              f"the SMF program's collective sites: {sites}")
+        hist_truth = np.asarray(HIST_TRUTH, np.float32)
+        hist_dense = GalhaloHistModel(aux_data=make_galhalo_hist_data(
+            big, chunk_size=hist_chunk, comm=comm, device=device), comm=comm)
+        hist_fused = GalhaloHistModel(aux_data=make_galhalo_hist_data(
+            big, chunk_size=hist_chunk, comm=comm, device=device,
+            **fused_kwargs), comm=comm)
+        joint = make_joint_smf_wprp(
+            pair_halos, big, comm=comm, device=device,
+            wprp_kwargs=dict(box_size=PAIR_BOX, pimax=PAIR_PIMAX))
+        stream_aux = make_smf_data(big, device=device)
+        halos = stream_aux.pop("log_halo_masses").cpu().numpy()
+        streamed = StreamingOnePointModel(
+            model=SMFModel(aux_data=stream_aux, comm=comm),
+            streams={"log_halo_masses": halos}, chunk_rows=stream_chunk)
+        gather = GatherModel(aux_data={"x": torch.ones(
+            1 << 20, device=device)}, comm=comm)
+        calls = (
+            ("SMF", lambda: smf.check_shard_safety(torch.zeros(2))),
+            ("history dense", lambda: hist_dense.check_shard_safety(
+                hist_truth, kinds=("loss_and_grad",))),
+            ("history fused", lambda: hist_fused.check_shard_safety(
+                hist_truth, kinds=("loss_and_grad",))),
+            ("joint", lambda: joint.check_shard_safety(
+                torch.zeros(3), comm_allow_linear=("ppermute",))),
+            ("batched (16, 2)", lambda: smf.check_shard_safety(
+                torch.zeros((16, 2)), kinds=("batched_loss_and_grad",),
+                k_scale=2)),
+            ("streamed", lambda: streamed.check_shard_safety(
+                torch.zeros(2))),
+            ("gather mutation", lambda: analyze_model(
+                gather, torch.zeros(2), kinds=("loss_and_grad",))))
+        # Earlier phases' garbage collected first, so that the card's
+        # bytes across the calls are the analysis's alone.
+        gc.collect()
+        sync()
+        bytes_before = allocated()
+        reset_launches()
+        before = allocations()
+        findings = {}
+        for label, call in calls:
+            t0 = time.perf_counter()
+            findings[label] = call()
+            out["seconds"][label] = time.perf_counter() - t0
+            log(f"[{time.perf_counter() - t_start:.0f} s] analysis, "
+                f"{label}: {len(findings[label])} finding(s) in "
+                f"{out['seconds'][label]:.2f} s on the host")
+        sync()
+        launches, made = read_launches(), allocations() - before
+        held = allocated() - bytes_before
+        log(f"analysis: launches {launches}, card allocations {made}, "
+            f"card bytes {held:+d} across the {len(calls)} calls")
+        check(launches == zero, f"the analysis launched kernels: {launches}")
+        check(made == 0 and held == 0, f"the analysis moved card memory: "
+              f"{made} allocations, {held} bytes")
+        for label, found in findings.items():
+            if label != "gather mutation":
+                check(found == [], f"{label}: {[str(f) for f in found]}")
+        caught = findings["gather mutation"]
+        check(len(caught) == 1 and caught[0].check == "comm-scaling"
+              and "all_gather" in caught[0].message
+              and "SCALES" in caught[0].message
+              and "chip_smoke.py" in caught[0].where,
+              f"the gather mutation: {[str(f) for f in caught]}")
+        log(f"analysis: the gather mutation caught: {caught[0]}")
+        del gather, hist_dense, hist_fused, joint, streamed, halos
+
+        # One loss and gradient of the analyzed model: phase 5's bits.
+        sync()
+        reset_launches()
+        loss, grad = smf.calc_loss_and_grad_from_params(GUESS)
+        sync()
+        out["launches"] = read_launches()
+        check(out["launches"] == zero | ({"erf_counts_fwd": 1,
+                                          "erf_counts_bwd": 1}
+                                         if on_card else {}),
+              f"launches of the loss and gradient: {out['launches']}")
+        check(torch.equal(loss, smf_ref["loss"])
+              and torch.equal(grad, smf_ref["grad"]),
+              f"the analyzed model's loss and gradient {float(loss)!r}, "
+              f"{grad.tolist()} differ from phase 5's "
+              f"{float(smf_ref['loss'])!r}, {smf_ref['grad'].tolist()}")
+        log("analysis: the analyzed SMF model's loss and gradient equal "
+            "phase 5's bit for bit")
+        del smf
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 27")
+
+    # The lint CLI, a process of its own under its own one-process group.
+    env = dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, "-m", "multigrad_tpu_torch.analysis.lint",
+         "--device", device, "--json"], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=600)
+    out["seconds"]["lint"] = time.perf_counter() - t0
+    check(lint.returncode == 0, f"the lint CLI exited {lint.returncode}: "
+          f"{lint.stdout[-2000:]}{lint.stderr[-2000:]}")
+    report = json.loads(lint.stdout)
+    check(report == {"findings": [], "clean": True},
+          f"the lint CLI's report: {report}")
+    log(f"analysis: python -m multigrad_tpu_torch.analysis.lint --device "
+        f"{device}: exit 0, no finding, {out['seconds']['lint']:.2f} s "
+        f"(stderr: {lint.stderr.strip()!r})")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3198,6 +3488,7 @@ def main():
     # chain rule through the plain versions of both kernels.
     aux = model.aux_data
     loss_k, grad_k = model.calc_loss_and_grad_from_params(GUESS)
+    smf_first = dict(loss=loss_k.clone(), grad=grad_k.clone())  # phase 27's
     vals = (aux["log_halo_masses"] + GUESS[0]).contiguous()
     edges, sig = aux["smf_bin_edges"], torch.tensor(GUESS[1], device=dev)
     widths = torch.diff(edges)
@@ -4150,6 +4441,12 @@ def main():
     tune = tune_phase(reset_launches, read_launches, wrappers, t_start)
     torch.cuda.empty_cache()
 
+    # 27. the static analysis on the card -------------------------------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 27")
+    analysis = analysis_phase(reset_launches, read_launches, wrappers,
+                              smf_first, fused_kwargs, t_start)
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------
 
     # Bytes: each input read once, each output written once.
@@ -4318,7 +4615,10 @@ def main():
                  launches_job=job["launches"][k["name"]],
                  # Phase 26: the tuner's trials, checks and profiled fit
                  # in this process.
-                 launches_tune=tune["launches"][k["name"]])
+                 launches_tune=tune["launches"][k["name"]],
+                 # Phase 27: none in the analysis; one each of kernels 1
+                 # and 2 in the loss and gradient after it.
+                 launches_analysis=analysis["launches"][k["name"]])
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     on_path = {"launches_fleet": ("erf_counts_fwd", "erf_counts_bwd"),
@@ -4390,6 +4690,9 @@ def main():
         f"({job['fits_per_hour']:.1f} fits/hour), stages {job['stages']}, "
         f"requeued {job['requeued']}, the ensemble best "
         f"{job['distance']} from JOINT_TRUTH")
+    log("analysis: host seconds a call " + ", ".join(
+        f"{label} {secs:.2f}" for label, secs in
+        analysis["seconds"].items()))
     log(f"profiler windows: {windows().windows}, run again "
         f"{windows().retries} times for a lost lead-in")
     log(f"done in {time.perf_counter() - t_start:.0f} s")

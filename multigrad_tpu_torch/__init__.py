@@ -31,7 +31,11 @@ whole posterior pipeline (scan, ensemble, Laplace, HMC, check) as one
 job.  ``tune`` sets the perf knobs (``bin_mode``, chunk sizes, the
 bucket ladder) from short trials on the card, pruned by the static cost
 model, and keeps the winners in a table beside the kernel libraries:
-``"auto"`` resolves to them.  The hot
+``"auto"`` resolves to them.  ``analysis`` proves the communication
+bound without running anything on the card (each program runs once on
+meta tensors: ``model.check_shard_safety(params)``, ``assert_clean``,
+``python -m multigrad_tpu_torch.analysis.lint``) and checks the port's
+own threads, futures and wire protocol from its source.  The hot
 op, the erf-CDF binned counts of the SMF and galaxy–halo models, runs as
 hand-written CUDA kernels on CUDA tensors and as their plain PyTorch
 versions on CPU tensors: the dense counts with a scalar or a
@@ -75,7 +79,12 @@ from .telemetry import (AlertEngine, CommCounter, FlightRecorder,  # noqa
                         FlightRecorderTripped, Heartbeat, JsonlSink,
                         LiveMetrics, LiveServer, MemorySink,
                         MetricsLogger, ScalarTap, measure_model_comm,
-                        profiled_fit, run_record)
+                        model_cost, profiled_fit, roofline_record,
+                        run_record)
+from . import analysis  # noqa: F401
+from .analysis import (Finding, analyze, analyze_concurrency,  # noqa
+                       analyze_fit, analyze_model, analyze_program,
+                       assert_clean)
 from . import serve  # noqa: F401
 from .serve import *  # noqa: F401,F403  (serve.__all__)
 from . import tune  # noqa: F401
@@ -102,7 +111,10 @@ __all__ = [
     "telemetry", "MetricsLogger", "JsonlSink", "MemorySink", "ScalarTap",
     "CommCounter", "Heartbeat", "measure_model_comm", "run_record",
     "FlightRecorder", "FlightRecorderTripped", "profiled_fit",
+    "model_cost", "roofline_record",
     "LiveMetrics", "LiveServer", "AlertEngine",
+    "analysis", "Finding", "analyze", "analyze_model",
+    "analyze_program", "analyze_fit", "assert_clean",
     "serve", *serve.__all__,
     "tune", "TuneResult", "TuningTable", "tune_model", "tune_buckets",
     "tune_streaming",

@@ -322,6 +322,13 @@ class OnePointGroup:
                   for m in self.models],
             comm=self.comm if checkpoint_dir is not None else None)
 
+    def check_shard_safety(self, params, **kwargs):
+        """Statically verify the group's program(s): the joint program of
+        a fused group, the members' otherwise (see
+        :func:`multigrad_tpu_torch.analysis.analyze_group`)."""
+        from ..analysis import analyze_group
+        return analyze_group(self, params, **kwargs)
+
     def __hash__(self):
         return id(self)
 

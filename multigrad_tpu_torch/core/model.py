@@ -611,6 +611,17 @@ class OnePointModel:
             return loss.detach(), psum(grad, self.comm)
         return program
 
+    def check_shard_safety(self, params, **kwargs):
+        """Statically verify this model's programs: one call to
+        :func:`multigrad_tpu_torch.analysis.analyze_model`, which runs
+        each program on meta tensors (nothing on the card) and returns a
+        list of :class:`~multigrad_tpu_torch.analysis.Finding`, empty
+        when the communication bound, dtype hygiene and constant-capture
+        rules all hold.  ``kwargs`` are forwarded (``kinds=``,
+        ``randkey=``, ``checks=``, ``scale=``, ``k_scale=``, ...)."""
+        from ..analysis import analyze_model
+        return analyze_model(self, params, **kwargs)
+
     # ------------------------------------------------------------------ #
     # Optimizer front-ends (parity: multigrad.py:226-352)
     # ------------------------------------------------------------------ #

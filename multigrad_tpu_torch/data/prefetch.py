@@ -52,6 +52,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .._lockdep import make_lock
 from ..utils.profiling import StreamStats
 from ..utils.util import resolve_device
 from .source import _ChunkRows
@@ -225,7 +226,8 @@ class ChunkPrefetcher:
         self.pass_name = pass_name
         self._tokens = threading.Semaphore(max_buffers)
         self._live = 0
-        self._live_lock = threading.Lock()
+        self._live_lock = make_lock(
+            "data.prefetch.ChunkPrefetcher._live_lock")
         self._queue: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._staging = None

@@ -335,6 +335,15 @@ class StreamingOnePointModel:
             scope="streamed_scan_step" if use_scan
             else "streamed_loss_and_grad_step", n_chunks=self.plan().n_chunks)
 
+    def check_shard_safety(self, params, **kwargs):
+        """Statically verify the streamed chunk programs (see
+        :func:`multigrad_tpu_torch.analysis.analyze_streaming`): each is
+        run on meta chunks of two row counts, which proves the stream's
+        collective traffic independent of the chunk's rows, plus the
+        dtype and constant-capture checks.  Nothing runs on the card."""
+        from ..analysis import analyze_streaming
+        return analyze_streaming(self, params, **kwargs)
+
     # ------------------------------------------------------------------ #
     # Fit loop
     # ------------------------------------------------------------------ #

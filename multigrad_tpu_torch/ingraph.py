@@ -17,7 +17,8 @@ from typing import Callable, Optional
 
 import torch
 
-from .parallel.collectives import reduce_sum, scatter_nd
+from .parallel.collectives import reduce_sum as _reduce_sum
+from .parallel.collectives import scatter_nd
 from .parallel.mesh import MeshComm
 from .utils.util import resolve_device
 
@@ -31,6 +32,13 @@ def distribute_data(data, comm: Optional[MeshComm] = None, pad_value=0.0,
     ``device`` (``None`` means CUDA); the whole array for ``comm=None``."""
     shard = scatter_nd(data, axis=0, comm=comm, pad_value=pad_value)
     return shard.to(resolve_device(device))
+
+
+def reduce_sum(partial_value, comm: Optional[MeshComm] = None):
+    """The sum over ``comm`` of each process's ``partial_value``, on every
+    process (the JAX package's signature: the comm is the second
+    argument); ``comm=None`` is the identity."""
+    return _reduce_sum(partial_value, comm=comm)
 
 
 def simple_grad_descent(data_dict, loss_and_grad_func: Callable, guess,

@@ -211,3 +211,9 @@ def binned_density(values, bin_edges, sigma, volume,
     widths = torch.diff(torch.as_tensor(bin_edges, dtype=counts.dtype,
                                         device=counts.device))
     return counts / volume / widths
+
+
+#: :func:`binned_density` itself: the JAX package's jitted entry point
+#: under its name.  The port has no program to compile; the kernels it
+#: reaches are built once, at first use.
+binned_density_jit = binned_density

@@ -166,6 +166,7 @@ def load(source: str, signatures: dict) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:
+            # lock-ok: blocking-under-lock the lock exists to make one build of each library: a thread that needs a library must wait for its nvcc either way, no other lock is taken under it, and the path is taken once a source per process (load() returns loaded libraries without the lock)
             lib = ctypes.CDLL(str(build((source,))[0]))
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

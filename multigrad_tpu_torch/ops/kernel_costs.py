@@ -34,7 +34,8 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 __all__ = ["HBM_BYTES_PER_S", "FP32_OPS_PER_S", "erf_fwd_ops",
            "erf_bwd_ops", "fused_fwd_ops", "fused_bwd_ops",
            "pair_ops_per_pair", "pair_fwd_ops", "pair_rowgrad_ops",
-           "pair_bwd_ops", "counting_mode", "declare_kernel"]
+           "pair_bwd_ops", "active_counting_mode",
+           "counting_mode", "declare_kernel"]
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): device memory
 #: bytes a second and FP32 operations a second outside the tensor cores.
@@ -106,6 +107,14 @@ def pair_bwd_ops(n1: int, n2: int, n_bins: int, box: bool = True,
             + pair_rowgrad_ops(n1, n_bins))
 
 
+def active_counting_mode():
+    """The active counting mode of the cost model, or None."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "declare_kernel"):
+            return mode
+    return None
+
+
 def counting_mode(what: str):
     """The active counting mode of the cost model
     (:func:`~multigrad_tpu_torch.telemetry.costmodel
@@ -113,9 +122,9 @@ def counting_mode(what: str):
     autograd carries into the thread that runs a backward pass.  Meta
     tensors reach a kernel or a collective only inside it: ``what``
     raises elsewhere, and never falls through to a plain version."""
-    for mode in reversed(_get_current_dispatch_mode_stack()):
-        if hasattr(mode, "declare_kernel"):
-            return mode
+    mode = active_counting_mode()
+    if mode is not None:
+        return mode
     raise RuntimeError(
         f"{what}: meta tensors reach a kernel or a collective only inside "
         "the static cost model (telemetry.costmodel.estimate_program_cost "

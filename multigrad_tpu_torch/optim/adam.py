@@ -60,6 +60,12 @@ from ..utils.util import resolve_device, trange
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
+def adam_trange(n, progress: bool = True):
+    """The Adam loop's progress bar over ``n`` steps (see
+    :func:`~multigrad_tpu_torch.utils.util.trange`)."""
+    return trange(n, "Adam Gradient Descent Progress", progress=progress)
+
+
 def init_randkey(randkey) -> int:
     """Check that randkey is an integer seed."""
     if isinstance(randkey, (int, np.integer)) and not isinstance(
@@ -78,6 +84,28 @@ def split_key(key: int):
 def gen_new_key(randkey: int) -> int:
     """A new seed from ``randkey`` (parity: ``adam.py:254-257``)."""
     return split_key(randkey)[0]
+
+
+def bias_corrections(step: int):
+    """optax's bias corrections of step ``step`` (from 0), ``1 - B1**t``
+    and ``1 - B2**t`` at ``t = step + 1``, computed in float32 on the
+    host: Python floats."""
+    count = torch.tensor(step + 1, dtype=torch.float32)
+    return (float(1 - torch.tensor(B1) ** count),
+            float(1 - torch.tensor(B2) ** count))
+
+
+def adam_update(u, grad, mu, nu, corrections, learning_rate: float):
+    """One Adam update of the unbounded parameters ``u`` from ``grad``,
+    the moments ``mu``, ``nu`` and the step's :func:`bias_corrections`:
+    ``(u, mu, nu, update)``.  Elementwise ops on the parameters' device
+    and nothing read off it."""
+    mu = (1 - B1) * grad + B1 * mu
+    nu = (1 - B2) * grad ** 2 + B2 * nu
+    mu_hat = mu / corrections[0]
+    nu_hat = nu / corrections[1]
+    update = learning_rate * (mu_hat / (torch.sqrt(nu_hat) + EPS))
+    return u - update, mu, nu, update
 
 
 def _wrap_bounded(loss_and_grad, low, high):
@@ -372,8 +400,7 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
     stopped = False
     with (monitor.running(start) if monitor is not None
           else contextlib.nullcontext()):
-        for i in trange(nsteps - start, "Adam Gradient Descent Progress",
-                        progress=progress):
+        for i in adam_trange(nsteps - start, progress=progress):
             step = start + i
             kwargs = {}
             if key is not None:
@@ -382,14 +409,9 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
                 else:
                     key, kwargs["randkey"] = split_key(key)
             out = fn(u, **kwargs)
-            grad = out[1]
-            mu = (1 - B1) * grad + B1 * mu
-            nu = (1 - B2) * grad ** 2 + B2 * nu
-            count = torch.tensor(step + 1, dtype=torch.float32)
-            mu_hat = mu / float(1 - torch.tensor(B1) ** count)
-            nu_hat = nu / float(1 - torch.tensor(B2) ** count)
-            update = learning_rate * (mu_hat / (torch.sqrt(nu_hat) + EPS))
-            u = u - update
+            u, mu, nu, update = adam_update(u, out[1], mu, nu,
+                                            bias_corrections(step),
+                                            learning_rate)
             traj.append(u)
             if monitor is not None:
                 monitor.step(step, out, u, update)

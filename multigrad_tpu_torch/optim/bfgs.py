@@ -22,6 +22,12 @@ from .transforms import (bounds_to_arrays, check_strictly_inside,
 from ..utils.util import resolve_device, trange
 
 
+def bfgs_trange(n, progress: bool = True):
+    """The BFGS loop's progress bar over ``n`` steps (see
+    :func:`~multigrad_tpu_torch.utils.util.trange`)."""
+    return trange(n, "BFGS Gradient Descent Progress", progress=progress)
+
+
 def run_bfgs(loss_and_grad_fn, params, maxsteps=100, param_bounds=None,
              randkey=None, comm=None, progress=True, device=None):
     """Run scipy L-BFGS-B on ``loss_and_grad_fn(params[, randkey=key])``.
@@ -43,8 +49,7 @@ def run_bfgs(loss_and_grad_fn, params, maxsteps=100, param_bounds=None,
     kwargs = {}
     if randkey is not None:
         kwargs["randkey"] = init_randkey(randkey)
-    pbar = trange(maxsteps, "BFGS Gradient Descent Progress",
-                  progress=progress)
+    pbar = bfgs_trange(maxsteps, progress=progress)
 
     # Outside the model's domain the loss can go NaN/inf.  scipy's line
     # search must see a finite, moderate penalty there (non-finite

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.kernel_costs import counting_mode
+from ..ops.kernel_costs import active_counting_mode, counting_mode
 from ..telemetry.comm import record_collective
 
 
@@ -102,22 +102,79 @@ class MeshComm:
             return f"MeshComm({self.name!r}, not a member)"
         return f"MeshComm({self.name!r}, rank={self.rank}, size={self.size})"
 
+    def _all_reduce(self, op: str, value, reduce_op) -> torch.Tensor:
+        """``value`` all-reduced with ``reduce_op`` over the group, on
+        every process (a new tensor), its payload recorded under the JAX
+        op name ``op``; ``value`` as it is without a process group."""
+        if not self.distributed:
+            return value
+        self._require_member(op)
+        out = torch.as_tensor(value).detach().clone()
+        record_collective(op, out)
+        if out.is_meta:             # the static cost model: counted only
+            counting_mode(op)
+            return out
+        dist.all_reduce(out, op=reduce_op, group=self.group)
+        return out
+
     def psum(self, value: torch.Tensor) -> torch.Tensor:
         """Sum of ``value`` over the group, on every process (a new
         tensor; the input is left as it was).  Under a process group the
         all-reduce runs whatever the group's size, one process too (where
         it is the identity); without one, ``value`` comes back as it
         is."""
+        return self._all_reduce("psum", value, dist.ReduceOp.SUM)
+
+    def pmean(self, value: torch.Tensor) -> torch.Tensor:
+        """Mean of ``value`` over the group: a SUM all-reduce divided by
+        the size (gloo has no AVG), recorded as ``"pmean"``."""
         if not self.distributed:
             return value
-        self._require_member("sum")
+        return self._all_reduce("pmean", value, dist.ReduceOp.SUM) \
+            / self.size
+
+    def pmax(self, value: torch.Tensor) -> torch.Tensor:
+        """Elementwise maximum of ``value`` over the group."""
+        return self._all_reduce("pmax", value, dist.ReduceOp.MAX)
+
+    def pmin(self, value: torch.Tensor) -> torch.Tensor:
+        """Elementwise minimum of ``value`` over the group."""
+        return self._all_reduce("pmin", value, dist.ReduceOp.MIN)
+
+    def all_gather(self, value, axis: int = 0, tiled: bool = True):
+        """Every process's ``value``, in rank order, on every process, as
+        ``jax.lax.all_gather``: concatenated along ``axis`` (``tiled``) or
+        stacked on a new axis ``axis`` (``tiled=False``), through
+        :func:`~multigrad_tpu_torch.parallel.collectives.all_gather`.
+        Recorded as ``"all_gather"`` with the payload of ``value``, one
+        process too.  Without a process group the one-process result:
+        ``value`` (stacked: on a new axis of size 1)."""
+        from .collectives import all_gather
+        value = torch.as_tensor(value)
+        if not tiled:
+            value = value.unsqueeze(axis)
+        if not self.distributed:
+            return value
+        self._require_member("gather")
+        if self.size > 1:
+            return all_gather(value, self, axis)
         out = value.detach().clone()
-        record_collective("psum", out)
+        record_collective("all_gather", out)
         if out.is_meta:             # the static cost model: counted only
-            counting_mode("psum")
-            return out
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+            counting_mode("all_gather")
         return out
+
+    def axis_index(self) -> torch.Tensor:
+        """This process's index in the group (its rank), an int32 scalar
+        on the comm's device: the card under NCCL, else the host.  0
+        without a process group (on meta inside the static cost model).
+        Moves no data, so, as the JAX method, it records nothing."""
+        device = "cpu"
+        if active_counting_mode() is not None:
+            device = "meta"         # the static cost model: no card memory
+        elif self.distributed and dist.get_backend(self.group) == "nccl":
+            device = torch.device("cuda", torch.cuda.current_device())
+        return torch.tensor(self.rank, dtype=torch.int32, device=device)
 
 
 def global_comm() -> MeshComm:

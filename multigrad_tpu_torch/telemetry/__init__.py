@@ -62,9 +62,6 @@ The fleet-watching CLIs (stdlib copies of the JAX package's):
 * :mod:`.regress` — the noise-aware bench regression gate.
 * :mod:`.top` — per-worker resource columns of a fleet.
 
-Not ported yet: the cost model (ROADMAP Queue 1 item 10, with
-``analysis/``).
-
 The stdlib-only modules of the JAX package are copied, not imported:
 ``import multigrad_tpu.<anything>`` runs ``multigrad_tpu/__init__``,
 which imports jax.  This package imports only numpy and the standard

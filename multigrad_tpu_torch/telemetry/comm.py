@@ -87,6 +87,11 @@ class CommCounter:
         Logical payload bytes, per op name.
     """
 
+    #: Optional per-call record, ``per_call(op, value, nbytes)``: a
+    #: subclass that keeps each collective's site (the analyzer's program
+    #: trace) sets it; a plain counter keeps totals only.
+    per_call = None
+
     def __init__(self):
         self.calls: dict = {}
         self.bytes: dict = {}
@@ -168,6 +173,8 @@ def record_collective(op: str, value, n_calls: int = 1):
     nbytes = sum(leaf_nbytes(leaf) for leaf in _leaves(value))
     for counter in stack:
         counter.record(op, nbytes, n_calls)
+        if counter.per_call is not None:
+            counter.per_call(op, value, nbytes)
 
 
 def traced_comm(fn, *args, **kwargs) -> CommCounter:

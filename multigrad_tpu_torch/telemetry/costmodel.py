@@ -231,11 +231,17 @@ class ProgramCost:
 
 class _CountingMode(TorchDispatchMode):
     """Runs every aten op on meta tensors and folds it into ``cost``; the
-    kernels' Functions find it on the mode stack (``declare_kernel``)."""
+    kernels' Functions find it on the mode stack (``declare_kernel``).
 
-    def __init__(self, cost: ProgramCost):
+    With a ``trace`` (the program trace of :mod:`multigrad_tpu_torch
+    .analysis.programs`), the same run also reports each aten op and its
+    outputs (``trace.on_op(func, out)``) and each captured tensor the
+    first time it is read (``trace.on_const(tensor)``)."""
+
+    def __init__(self, cost: ProgramCost, trace=None):
         super().__init__()
         self.cost = cost
+        self.trace = trace
         self._consts: dict = {}
         # An op's output layouts and counts by its inputs' layouts: a
         # count runs the same ops on the same shapes chunk after chunk,
@@ -273,7 +279,10 @@ class _CountingMode(TorchDispatchMode):
             return kind(out)
         if isinstance(x, torch.Tensor):
             if not x.is_meta:
-                self._consts.setdefault(id(x), leaf_nbytes(x))
+                if id(x) not in self._consts:
+                    self._consts[id(x)] = leaf_nbytes(x)
+                    if self.trace is not None:
+                        self.trace.on_const(x)
                 x = torch.empty_like(x, device="meta")
             sig.append((x.shape, x.stride(), x.storage_offset(), x.dtype))
             return x
@@ -302,13 +311,18 @@ class _CountingMode(TorchDispatchMode):
             if hit is not None:
                 layout, flops, transcendentals = hit
                 self._add(flops, transcendentals)
-                return _rebuild(layout)
+                out = _rebuild(layout)
+                if self.trace is not None:
+                    self.trace.on_op(func, out)
+                return out
         out = func(*args, **kwargs)
         flops, transcendentals = _op_cost(func, args, out)
         self._add(flops, transcendentals)
         layout = _layout(out) if key is not None else None
         if layout is not None:
             self._memo[key] = (layout, flops, transcendentals)
+        if self.trace is not None:
+            self.trace.on_op(func, out)
         return out
 
 
@@ -356,6 +370,26 @@ def _to_meta(tree):
     return tree
 
 
+def run_counted(fn, args, trace=None):
+    """Run ``fn(*args)`` once on meta tensors under the counting mode:
+    ``(cost, out)``.  The one run behind :func:`estimate_program_cost`
+    and the analyzer's program trace: ``trace``, when given, is a
+    :class:`~.comm.CommCounter` (it counts the collectives, and its
+    ``per_call`` hook sees each one) that the mode also tells of every
+    op and captured tensor (see :class:`_CountingMode`)."""
+    cost = ProgramCost()
+    meta_args = _to_meta(args)
+    cost.arg_bytes = sum(leaf_nbytes(t) for t in _tensors(meta_args))
+    mode = _CountingMode(cost, trace)
+    with (CommCounter() if trace is None else trace) as comm, mode:
+        out = fn(*meta_args)
+    cost.out_bytes = sum(leaf_nbytes(t) for t in _tensors(out))
+    cost.const_bytes = int(sum(mode._consts.values()))
+    cost.comm_bytes = cost.comm_bytes_unattributed = int(comm.total_bytes)
+    cost.comm_calls = int(comm.total_calls)
+    return cost, out
+
+
 def estimate_program_cost(fn, *args) -> ProgramCost:
     """Run ``fn(*args)`` on meta tensors and account its cost.
 
@@ -364,17 +398,7 @@ def estimate_program_cost(fn, *args) -> ProgramCost:
     the card) and Python values, nested in lists, tuples and dicts.  No
     kernel launches and no collective communicates.
     """
-    cost = ProgramCost()
-    meta_args = _to_meta(args)
-    cost.arg_bytes = sum(leaf_nbytes(t) for t in _tensors(meta_args))
-    mode = _CountingMode(cost)
-    with CommCounter() as comm, mode:
-        out = fn(*meta_args)
-    cost.out_bytes = sum(leaf_nbytes(t) for t in _tensors(out))
-    cost.const_bytes = int(sum(mode._consts.values()))
-    cost.comm_bytes = cost.comm_bytes_unattributed = int(comm.total_bytes)
-    cost.comm_calls = int(comm.total_calls)
-    return cost
+    return run_counted(fn, args)[0]
 
 
 def _program(model, kind: str, with_key: bool):
@@ -394,6 +418,15 @@ def _program(model, kind: str, with_key: bool):
         return program
     raise ValueError(f"unknown program kind {kind!r}; expected one of "
                      f"{KINDS}")
+
+
+def meta_params(params) -> torch.Tensor:
+    """An empty float32 meta tensor of ``params``' shape (a tensor, an
+    array or a sequence)."""
+    if not isinstance(params, torch.Tensor):
+        params = torch.as_tensor(np.asarray(params, np.float32))
+    return torch.empty(tuple(params.shape), dtype=torch.float32,
+                       device="meta")
 
 
 def model_cost(model, params, kind: str = "loss_and_grad",
@@ -416,12 +449,9 @@ def model_cost(model, params, kind: str = "loss_and_grad",
     if with_key:
         from ..optim.adam import init_randkey
         key = init_randkey(randkey)
-    if not isinstance(params, torch.Tensor):
-        params = torch.as_tensor(np.asarray(params, np.float32))
-    params = torch.empty(tuple(params.shape), dtype=torch.float32,
-                         device="meta")
-    return estimate_program_cost(_program(model, kind, with_key), params,
-                                 model.aux_leaves(), key)
+    return estimate_program_cost(_program(model, kind, with_key),
+                                 meta_params(params), model.aux_leaves(),
+                                 key)
 
 
 # ------------------------------------------------------------------ #

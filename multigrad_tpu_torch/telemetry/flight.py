@@ -57,7 +57,6 @@ import collections
 import json
 import os
 import tempfile
-import threading
 import time
 from typing import Optional
 
@@ -286,7 +285,9 @@ class FlightRecorder:
         # Re-entrant: write() -> trip() -> dump() all touch recorder
         # state; dump snapshots under the lock and does its file IO
         # outside it.
-        self._lock = threading.RLock()
+        from .._lockdep import make_rlock
+        self._lock = make_rlock(
+            "telemetry.flight.FlightRecorder._lock")
         self._context = dict(context or {})
         self._watched: dict = {}
         self._run_record: Optional[dict] = None

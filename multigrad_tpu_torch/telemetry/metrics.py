@@ -41,7 +41,7 @@ from typing import Optional
 
 import numpy as np
 
-import threading
+from .._lockdep import make_rlock
 
 __all__ = ["run_record", "config_digest", "JsonlSink", "CsvSink",
            "MemorySink", "MetricsLogger"]
@@ -243,8 +243,12 @@ class MetricsLogger:
         # Re-entrant: a sink may emit back into its own stream from
         # inside write() — the AlertEngine logs `alert` records this
         # way — and a plain Lock would deadlock that same-thread
-        # recursion.
-        self._lock = threading.RLock()
+        # recursion.  Sinks are pluggable, so the lock-order edges
+        # this opens cannot be derived statically: declared as a
+        # fan-out source for the lockdep cross-check.
+        self._lock = make_rlock(
+            "telemetry.metrics.MetricsLogger._lock",
+            may_precede="*")
         self._closed = False
         self.run = run_record(run_config, **(run_extra or {}))
         # Stamped on every record (not just the run header): multi-
@@ -270,8 +274,7 @@ class MetricsLogger:
             if self._closed or any(s is sink for s in self._sinks):
                 return sink
             self._sinks.append(sink)
-            # Under the lock: the replayed run record must be ordered
-            # before any record a racing log() would fan out.
+            # lock-ok: callback-under-lock deliberate: the lock is an RLock exactly so a sink may re-enter log() from inside write(); the replayed run record must be ordered before any record a racing log() would fan out
             sink.write(self.run)
         return sink
 
@@ -280,8 +283,7 @@ class MetricsLogger:
             if self._closed:
                 return
             for sink in self._sinks:
-                # Under the lock: it gives every sink the same total
-                # record order (sinks may re-enter: an RLock).
+                # lock-ok: callback-under-lock deliberate: sinks may re-enter (RLock) and the lock is what gives every sink the same total record order; the lock is declared may_precede="*" so lockdep still watches the edges sinks open
                 sink.write(record)
 
     def log(self, event: str, **fields) -> dict:

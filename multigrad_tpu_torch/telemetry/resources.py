@@ -51,7 +51,7 @@ dispatch it compares the measured device peak against the ensemble
 memory model (:func:`measured_vs_modeled`) and emits the record, so
 the model can never silently drift from the hardware.  The port's
 model counts the Adam carry only, not each row's autograd graph, so
-on the card the ratio reads far above 1 (ROADMAP.md Queue 1).
+on the card the ratio reads far above 1 (ROADMAP.md Queue 2 item 9).
 
 This module imports only the standard library at module level (torch
 lazily inside the device probe), per the telemetry package contract.

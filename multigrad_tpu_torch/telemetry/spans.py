@@ -114,7 +114,8 @@ class Heartbeat:
         self.interval = float(interval)
         self.stall_after = (float(stall_after) if stall_after is not None
                             else 3.0 * float(interval))
-        self._lock = threading.Lock()
+        from .._lockdep import make_lock
+        self._lock = make_lock("telemetry.spans.Heartbeat._lock")
         self._last_step: Optional[int] = None
         self._last_tick = time.perf_counter()
         self._prev_beat_step: Optional[int] = None

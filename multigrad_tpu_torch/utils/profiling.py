@@ -18,6 +18,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from .._lockdep import make_lock
+
 __all__ = ["Timer", "trace", "StreamStats", "StepsPerSecond"]
 
 
@@ -139,8 +141,10 @@ class StreamStats:
 
     _PASS_KEYS = ("bytes_streamed", "chunks", "stall_s", "fill_s",
                   "wall_s")
-    _lock: threading.Lock = field(default_factory=threading.Lock,
-                                  repr=False, compare=False)
+    _lock: threading.Lock = field(
+        default_factory=lambda: make_lock(
+            "utils.profiling.StreamStats._lock"),
+        repr=False, compare=False)
 
     def add(self, pass_name: Optional[str] = None, **deltas):
         with self._lock:

@@ -16,7 +16,8 @@ except ImportError:  # pragma: no cover
 
 __all__ = ["resolve_device", "simple_grad_descent",
            "simple_grad_descent_scan", "GradDescentResult",
-           "latin_hypercube_sampler", "pad_to_multiple", "trange",
+           "latin_hypercube_sampler", "pad_to_multiple", "scatter_nd",
+           "trange",
            "add_compile_observer", "remove_compile_observer"]
 
 # Kernel-build observers (telemetry.resources subscribes).  Every
@@ -77,6 +78,16 @@ def trange(n, desc=None, leave=True, *, progress=True):
     if progress and tqdm is not None and _is_process_zero():
         return tqdm.trange(n, desc=desc, leave=leave)
     return range(n)
+
+
+def __getattr__(name):
+    # scatter_nd is parallel.collectives', re-exported as in the JAX
+    # package; imported at first use, since the collectives import this
+    # module.
+    if name == "scatter_nd":
+        from ..parallel.collectives import scatter_nd
+        return scatter_nd
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _is_process_zero() -> bool:

@@ -1,6 +1,8 @@
 """The port's comm over ``torch.distributed``: 2-rank gloo runs of the SMF
 and history models against the single-process runs, the wp(rp) ring at 3
-and 4 ranks, and the world-size-1 identity.
+and 4 ranks, ``MeshComm``'s ``pmean``, ``pmax``, ``pmin``, ``all_gather``
+and ``axis_index`` at 2 and 3 ranks against their values worked out in
+numpy, and the world-size-1 identity.
 
 Each rank is a process of its own that holds its shard of the halos,
 as in the original MPI multigrad.  The ranks run this file as a script
@@ -52,6 +54,9 @@ def _run_rank(kind, rank, world, init_file, out_file):
         if kind.startswith("wprp"):
             _run_wprp_rank(kind, out_file)
             return
+        if kind == "mesh_ops":
+            _run_mesh_ops_rank(out_file)
+            return
         comm = global_comm()
         model = SMFModel(aux_data=make_smf_data(NUM_HALOS, comm=comm,
                                                 device="cpu"), comm=comm)
@@ -78,6 +83,31 @@ def _run_hist_rank(out_file):
     np.savez(out_file, shard=model.aux_data["log_halo_masses"].numpy(),
              total=model.calc_sumstats_from_params(HIST_PARAMS).numpy(),
              loss=loss.numpy(), grad=grad.numpy())
+
+
+def _mesh_ops_value(rank):
+    """Rank ``rank``'s (2, 3) input of the collectives test."""
+    return np.arange(6, dtype=np.float32).reshape(2, 3) * (rank + 1) \
+        - 2.0 * rank
+
+
+def _run_mesh_ops_rank(out_file):
+    from multigrad_tpu_torch.telemetry.comm import CommCounter
+    comm = global_comm()
+    x = torch.from_numpy(_mesh_ops_value(comm.rank))
+    with CommCounter() as cc:
+        out = dict(pmean=comm.pmean(x), pmax=comm.pmax(x),
+                   pmin=comm.pmin(x), gather=comm.all_gather(x),
+                   gather1=comm.all_gather(x, axis=1),
+                   stacked=comm.all_gather(x, tiled=False),
+                   stacked1=comm.all_gather(x, axis=1, tiled=False),
+                   index=comm.axis_index())
+    np.savez(out_file, **{k: v.numpy() for k, v in out.items()},
+             input=x.numpy(),
+             calls=np.array([cc.calls[op] for op in
+                             ("pmean", "pmax", "pmin", "all_gather")]),
+             nbytes=np.array([cc.bytes[op] for op in
+                              ("pmean", "pmax", "pmin", "all_gather")]))
 
 
 def _wprp_model(comm, num_halos, seed):
@@ -240,6 +270,26 @@ def test_four_rank_ring_padding_is_neutral():
         np.testing.assert_allclose(r["total"], want, rtol=2e-4)
         np.testing.assert_allclose(r["grad"], want_grad, rtol=1e-3,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_mesh_comm_collectives_across_ranks(world):
+    ranks = _launch("mesh_ops", world)
+    xs = np.stack([_mesh_ops_value(r) for r in range(world)])
+    for rank, r in enumerate(ranks):
+        np.testing.assert_array_equal(r["input"], xs[rank])
+        np.testing.assert_allclose(r["pmean"], xs.mean(0), rtol=1e-6)
+        np.testing.assert_array_equal(r["pmax"], xs.max(0))
+        np.testing.assert_array_equal(r["pmin"], xs.min(0))
+        np.testing.assert_array_equal(r["gather"], np.concatenate(xs, 0))
+        np.testing.assert_array_equal(r["gather1"], np.concatenate(xs, 1))
+        np.testing.assert_array_equal(r["stacked"], xs)
+        np.testing.assert_array_equal(r["stacked1"], np.stack(xs, 1))
+        assert r["index"].dtype == np.int32 and int(r["index"]) == rank
+        # One call each of the reductions, four gathers; every payload is
+        # this rank's (2, 3) float32 input, under the JAX op names.
+        np.testing.assert_array_equal(r["calls"], [1, 1, 1, 4])
+        np.testing.assert_array_equal(r["nbytes"], [24, 24, 24, 96])
 
 
 def test_world_size_one_identity():

@@ -15,6 +15,15 @@
   *fn_args)``.  Trajectories against the JAX package's on the same
   objective: rtol 1e-5 (optax's Adam and the port's loop are the same
   float32 ops, but XLA may contract them into FMAs).
+* The four port faults that the JAX package's passes found: A,
+  ``ingraph.reduce_sum(partial_value, comm)`` called positionally; B,
+  every public name of the JAX package present in the port or in one of
+  two named JAX-only sets with their reasons; C, ``MeshComm``'s
+  ``pmean``, ``pmax``, ``pmin``, ``all_gather`` and ``axis_index`` on a
+  one-process gloo group against the JAX methods on a 1-device mesh (the
+  2- and 3-rank runs are in ``tests/test_torch_comm.py``); D, the
+  ``MetricsLogger`` lock built by the lockdep factory, so the shadow sees
+  the edges a sink opens under it.
 """
 import inspect
 
@@ -448,17 +457,48 @@ TUNE_NAMES = [f"{module}.{name}" for module, names in (
                              "roofline_record")))
     for name in names]
 
+#: The in-graph surface, the comm's collectives, the progress bars and
+#: the static analysis: its entry points, checks, trace and lint.
+ANALYSIS_NAMES = [
+    "ingraph.reduce_sum", "ingraph.distribute_data",
+    "parallel.mesh.MeshComm.pmean", "parallel.mesh.MeshComm.pmax",
+    "parallel.mesh.MeshComm.pmin", "parallel.mesh.MeshComm.all_gather",
+    "parallel.mesh.MeshComm.axis_index", "optim.adam.adam_trange",
+    "optim.bfgs.bfgs_trange", "ops.binned.binned_density_jit",
+    "core.model.OnePointModel.check_shard_safety",
+    "core.group.OnePointGroup.check_shard_safety",
+    "data.streaming.StreamingOnePointModel.check_shard_safety"] + [
+    f"analysis.{module}.{name}" for module, names in (
+        ("analyzer", ("analyze", "analyze_program", "analyze_model",
+                      "analyze_streaming", "analyze_group", "analyze_fit",
+                      "assert_clean")),
+        ("checks", ("check_dtype_promotion", "check_captured_consts",
+                    "check_comm_invariance", "check_k_scaling")),
+        ("findings", ("Finding", "format_findings")),
+        ("concurrency", ("analyze_concurrency", "crosscheck_runtime",
+                         "lock_order_dot")),
+        ("lockgraph", ("scan_package", "to_dot")),
+        ("settlement", ("analyze_settlement", "scan_settlement")),
+        ("wireschema", ("analyze_wire", "extract_schema", "dump_schema",
+                        "diff_schema", "protocol_markdown")),
+        ("lint", ("main",))) for name in names]
+
 #: Differences by design (ROADMAP Queue 3): the port's keyword-only
 #: ``comm`` of ``run_adam_streamed`` (its checkpoint's writer and
 #: barrier) and ``progress`` of ``trange`` (the port's callers turn the
 #: bar off there; the JAX package picks ``range`` at each call site), and
 #: the memory-budget knob ``k_budget_bytes``, which comes with sharded K;
 #: the fleet's ``devices``/``platform`` (a worker's XLA runtime), whose
-#: place the port's ``device`` takes.
+#: place the port's ``device`` takes; the counts' ``backend`` (Pallas or
+#: XLA), whose place the tensor's device takes (the CUDA kernel on the
+#: card, the plain version on the host).
 PORT_ONLY = {"optim.adam.run_adam_streamed": ["comm"],
-             "utils.util.trange": ["progress"]}
+             "utils.util.trange": ["progress"],
+             "optim.adam.adam_trange": ["progress"],
+             "optim.bfgs.bfgs_trange": ["progress"]}
 JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"],
-            "serve.fleet.FleetRouter": ["devices", "platform"]}
+            "serve.fleet.FleetRouter": ["devices", "platform"],
+            "ops.binned.binned_density_jit": ["backend"]}
 
 
 @pytest.mark.parametrize("name", [
@@ -471,7 +511,7 @@ JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"],
     "inference.ensemble.run_multistart_adam",
     "inference.ensemble.run_multistart_lbfgs", "inference.hmc.run_hmc",
     "parallel.distributed.initialize", "utils.util.simple_grad_descent",
-    "utils.util.trange"] + TELEMETRY_NAMES + SERVE_NAMES + FLEET_NAMES
+    "utils.util.trange"] + ANALYSIS_NAMES + TELEMETRY_NAMES + SERVE_NAMES + FLEET_NAMES
     + TUNE_NAMES)
 def test_public_signature_matches_the_jax_package(name):
     got = _names(_resolve("multigrad_tpu_torch", name))
@@ -483,3 +523,241 @@ def test_public_signature_matches_the_jax_package(name):
            and n not in PORT_ONLY.get(name, ())]
     want = [n for n in want if n not in JAX_ONLY.get(name, ())]
     assert got == want, (got, want)
+
+
+# --------------------------------------------------------------------- #
+# A: ingraph.reduce_sum takes the comm second, as the JAX package's
+# --------------------------------------------------------------------- #
+def test_ingraph_reduce_sum_takes_comm_second(fake_group):
+    from multigrad_tpu_torch import ingraph
+    fake_group["backend"] = "gloo"
+    got = ingraph.reduce_sum(torch.ones(3), MeshComm())   # positional
+    np.testing.assert_array_equal(got.numpy(), [2.0, 2.0, 2.0])
+    assert len(fake_group["reduced"]) == 1
+    assert ingraph.reduce_sum(1.5) == 1.5              # comm=None
+
+
+# --------------------------------------------------------------------- #
+# B: every public name of the JAX package, or a named reason
+# --------------------------------------------------------------------- #
+#: JAX-only by design, each with its reason: modules (dotted, relative to
+#: the package) and names (wherever the JAX package exports them).
+BY_DESIGN = {
+    "ops.pallas_kernels": "the Pallas kernels; the port's are "
+                          "csrc/*.cu behind ops.erf_kernels, "
+                          "ops.fused_kernels and ops.pair_kernels",
+    "binned_erf_counts_pallas": "a Pallas entry point: the port's ops "
+                                "reach its CUDA kernels through "
+                                "binned_erf_counts",
+    "binned_erf_counts_fused_pallas": "the same, the fused counts",
+    "pair_counts_pallas": "the same, through ring_weighted_pair_counts",
+    "parallel._shard_map_compat": "shard_map across jax versions; the "
+                                  "port has no shard_map",
+    "hybrid_mesh": "a 2-level jax Mesh; the port's hybrid_comm checks "
+                   "the ranks' node-major layout instead",
+    "spmd_kernel": "wraps a function in shard_map over the comm's mesh",
+    "wrap_spmd": "the same",
+    "OrbaxCheckpointer": "orbax is a jax library; the port checkpoints "
+                         "with its own npz writer",
+    "jaxpr_digest": "a digest of a jaxpr; the port has none to digest",
+    "check_replication": "replication of shard_map outputs, and of "
+                         "sharded arrays across devices: each process of "
+                         "the port holds its own values",
+    "replication_check": "the same",
+    "cached_program": "jax's compiled-program cache; the port compiles "
+                      "nothing",
+    "evict_cached_programs": "the same",
+    "adam_fit_program": "the whole fit as one jitted lax.scan program; "
+                        "the port's fit is a host loop",
+    "resolve_donate": "buffer donation to a jitted program",
+    "from_mesh": "MeshComm over a jax Mesh",
+    "devices": "the jax devices of a comm's mesh; a port process has "
+               "its card",
+    "sharding": "a jax NamedSharding over the comm's mesh",
+    "replicated": "the same",
+    "axes": "mesh axis names; the port's collectives name no axis",
+    "free_axes": "the same",
+    "analysis.replication": "the replication dataflow over shard_map "
+                            "bodies",
+    "check_callbacks_in_scan": "in-graph host callbacks inside lax.scan; "
+                               "the port's taps copy records between "
+                               "steps",
+}
+#: Waits for sharded K (ROADMAP Queue 1 item 6).
+ITEM_6 = {"ensemble_comm", "ensemble_mesh", "k_shard_axis",
+          "k_shard_replicas", "k_sharding", "DEFAULT_K_BUDGET_BYTES",
+          "ExactShardModel", "make_exact_shard_model",
+          "bitwise_trajectory_pair"}
+#: JAX modules whose port has another name.
+RENAMED = {"analysis.jaxprs": "analysis.programs"}
+
+
+def _public_names(module):
+    """A module's ``__all__``, or the functions and classes it defines."""
+    names = getattr(module, "__all__", None)
+    if names is not None:
+        return list(names)
+    return [n for n, v in vars(module).items() if not n.startswith("_")
+            and (inspect.isfunction(v) or inspect.isclass(v))
+            and getattr(v, "__module__", None) == module.__name__]
+
+
+def test_every_jax_public_name_is_ported_or_named():
+    import importlib
+    import pkgutil
+
+    import multigrad_tpu
+    missing, seen = [], set()
+    modules = [("", multigrad_tpu)] + [
+        (info.name[len("multigrad_tpu."):],
+         importlib.import_module(info.name))
+        for info in pkgutil.walk_packages(multigrad_tpu.__path__,
+                                          "multigrad_tpu.")]
+    for rel, jmod in modules:
+        if rel in BY_DESIGN:
+            seen.add(rel)
+            continue
+        target = ".".join(filter(None, ("multigrad_tpu_torch",
+                                        RENAMED.get(rel, rel))))
+        try:
+            pmod = importlib.import_module(target)
+        except ModuleNotFoundError:
+            missing.append(f"module {rel}")
+            continue
+        for name in _public_names(jmod):
+            if hasattr(pmod, name):
+                continue
+            if name in BY_DESIGN or name in ITEM_6:
+                seen.add(name)
+                continue
+            missing.append(f"{rel or '<root>'}.{name}")
+    import multigrad_tpu_torch as port
+    for cls in ("OnePointModel", "OnePointGroup", "StreamingOnePointModel",
+                "MeshComm"):
+        for name in dir(getattr(multigrad_tpu, cls)):
+            if name.startswith("_") or hasattr(getattr(port, cls), name):
+                continue
+            if name in BY_DESIGN or name in ITEM_6:
+                seen.add(name)
+                continue
+            missing.append(f"{cls}.{name}")
+    assert missing == [], missing
+    # Every exception names something the JAX package has and the port
+    # lacks: neither set holds a stale entry.
+    assert seen == set(BY_DESIGN) | ITEM_6, \
+        sorted(set(BY_DESIGN) | ITEM_6 - seen)
+
+
+def test_missing_names_now_exported():
+    from multigrad_tpu_torch import ops, utils
+    from multigrad_tpu_torch.ops import binned
+    from multigrad_tpu_torch.optim import adam, bfgs
+    from multigrad_tpu_torch.parallel import collectives
+    assert utils.scatter_nd is util.scatter_nd is collectives.scatter_nd
+    assert binned.binned_density_jit is binned.binned_density
+    assert ops.binned_density_jit is binned.binned_density
+    for name in ("checkpoint", "debug", "profiling", "diffdesi"):
+        assert hasattr(utils, name)
+    assert list(adam.adam_trange(3, progress=False)) == [0, 1, 2]
+    assert list(bfgs.bfgs_trange(2, progress=False)) == [0, 1]
+    for name in ("model_cost", "roofline_record", "analysis", "Finding",
+                 "analyze", "analyze_model", "analyze_program",
+                 "analyze_fit", "assert_clean"):
+        assert name in mgtt.__all__ and hasattr(mgtt, name)
+
+
+# --------------------------------------------------------------------- #
+# C: MeshComm's collectives against the JAX methods on one device
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def one_process_gloo(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        yield MeshComm()
+    finally:
+        dist.destroy_process_group()
+
+
+def _jax_on_one_device(method, x, **kwargs):
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from multigrad_tpu.parallel._shard_map_compat import PRE_VMA, shard_map
+    from multigrad_tpu.parallel.mesh import MeshComm as JaxMeshComm
+    comm = JaxMeshComm(jax.devices()[:1])
+    out = P("shards") if method == "axis_index" else P()
+
+    def body(v):
+        if method == "axis_index":
+            return comm.axis_index()[None]
+        return getattr(comm, method)(v, **kwargs)
+
+    # The replication check off, as the JAX package's compat shard_map
+    # has it on pre-vma jax.
+    unchecked = {} if PRE_VMA else {"check_vma": False}
+    return np.asarray(jax.jit(shard_map(
+        body, mesh=comm.mesh, in_specs=(P("shards"),), out_specs=out,
+        **unchecked))(x))
+
+
+@pytest.mark.parametrize("method,kwargs", [
+    ("pmean", {}), ("pmax", {}), ("pmin", {}), ("all_gather", {}),
+    ("all_gather", {"tiled": False}), ("all_gather", {"axis": 1,
+                                                       "tiled": False}),
+    ("axis_index", {})])
+def test_mesh_comm_collectives_match_jax_on_one_process(
+        one_process_gloo, method, kwargs):
+    from multigrad_tpu_torch.telemetry.comm import CommCounter
+    x = np.arange(6, dtype=np.float32).reshape(2, 3) - 2.5
+    want = _jax_on_one_device(method, x, **kwargs)
+    with CommCounter() as cc:
+        if method == "axis_index":
+            got = one_process_gloo.axis_index()[None]
+        else:
+            got = getattr(one_process_gloo, method)(torch.from_numpy(x),
+                                                    **kwargs)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    # Recorded under the JAX op name with the input's payload; the
+    # axis index moves no data.
+    assert cc.bytes == ({} if method == "axis_index"
+                        else {method: x.nbytes})
+
+
+def test_mesh_comm_collectives_without_a_group_are_the_identity():
+    comm = MeshComm()
+    x = torch.arange(4.0)
+    for method in ("psum", "pmean", "pmax", "pmin", "all_gather"):
+        assert getattr(comm, method)(x) is x
+    assert comm.all_gather(x, tiled=False).shape == (1, 4)
+    assert int(comm.axis_index()) == 0
+
+
+# --------------------------------------------------------------------- #
+# D: the logger lock is lockdep's, so its edges are seen
+# --------------------------------------------------------------------- #
+def test_metrics_logger_lock_is_seen_by_lockdep():
+    from multigrad_tpu_torch import _lockdep
+
+    class LockingSink(MemorySink):
+        def __init__(self):
+            super().__init__()
+            self._lock = _lockdep.make_lock("tests.LockingSink._lock")
+
+        def write(self, record):
+            with self._lock:
+                super().write(record)
+
+    _lockdep.enable()
+    _lockdep.reset()
+    try:
+        sink = LockingSink()
+        logger = MetricsLogger(sink)
+        logger.log("step", loss=1.0)
+        edges = set(_lockdep.edges())
+    finally:
+        _lockdep.disable()
+        _lockdep.reset()
+    assert ("telemetry.metrics.MetricsLogger._lock",
+            "tests.LockingSink._lock") in edges
+    assert [r["event"] for r in sink.records] == ["run", "step"]

@@ -28,6 +28,7 @@ def _python_files():
     yield os.path.join(REPO_ROOT, "tools", "serve_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "fleet_smf.py")
     yield os.path.join(REPO_ROOT, "tools", "tune_smf.py")
+    yield os.path.join(REPO_ROOT, "tools", "analysis_smf.py")
 
 
 def _imported_roots(path):
@@ -87,6 +88,8 @@ def test_import_loads_no_jax():
         "import multigrad_tpu_torch.telemetry.costmodel\n"
         "import multigrad_tpu_torch.ops.kernel_costs\n"
         "import multigrad_tpu_torch.tune, multigrad_tpu_torch.tune.__main__\n"
+        "import multigrad_tpu_torch.analysis\n"
+        "import multigrad_tpu_torch.analysis.lint\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
@@ -137,7 +140,11 @@ def test_no_forbidden_import_in_sources():
             os.path.join("ops", "kernel_costs.py"),
             *(os.path.join("tune", f"{m}.py") for m in (
                 "__init__", "__main__", "table", "space", "resolve",
-                "tuner"))} <= names
+                "tuner")),
+            *(os.path.join("analysis", f"{m}.py") for m in (
+                "__init__", "findings", "lockgraph", "concurrency",
+                "settlement", "wireschema", "programs", "checks",
+                "analyzer", "lint"))} <= names
     assert len(files) > 10
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -157,7 +164,7 @@ def test_no_forbidden_import_in_sources():
                                    "run_adam", "run_adam_scan",
                                    "initialize", "profiled_fit",
                                    "measure_model_comm", "build_model",
-                                   "tune_cli"])
+                                   "tune_cli", "lint_cli"])
 def test_default_device_is_cuda(entry):
     # device=None means the card: on a machine without one, the entry
     # points raise instead of computing on the CPU.
@@ -178,6 +185,7 @@ def test_default_device_is_cuda(entry):
     from multigrad_tpu_torch.optim.transforms import bounds_to_arrays
     from multigrad_tpu_torch.serve.worker import build_model
     from multigrad_tpu_torch.tune.__main__ import main as tune_main
+    from multigrad_tpu_torch.analysis.lint import main as lint_main
     from multigrad_tpu_torch.utils.util import resolve_device
     call = {"make_smf_data": lambda: make_smf_data(100),
             "resolve_device": resolve_device,
@@ -232,6 +240,9 @@ def test_default_device_is_cuda(entry):
             "build_model": lambda: build_model("smf", {"num_halos": 100}),
             # The tuner's CLI: its model and trials on the card.
             "tune_cli": lambda: tune_main(["--num-halos", "100"]),
+            # The lint CLI: its models on the card.
+            "lint_cli": lambda: lint_main(["--targets", "smf",
+                                           "--num-halos", "100"]),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

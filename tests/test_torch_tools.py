@@ -1,7 +1,8 @@
-"""``tools/hist_card_vs_cpu.py``'s references, on the CPU, and
-``tools/streamed_smf.py``, ``tools/posterior_smf.py`` and
-``tools/telemetry_smf.py`` refusing to run
-without a card.
+"""``tools/hist_card_vs_cpu.py``'s references, on the CPU,
+``tools/streamed_smf.py``, ``tools/posterior_smf.py``,
+``tools/telemetry_smf.py`` and ``tools/analysis_smf.py`` refusing to run
+without a card, and ``tools/analysis_smf.py --cpu``, phase 27's checks
+rehearsed on the CPU.
 
 ``chip_smoke.py``'s phase 9 and ``tests/test_torch_cuda.py`` hold the
 history model on the card against the CPU model fed the card's mean
@@ -79,3 +80,36 @@ def test_telemetry_smf_needs_a_card():
                          timeout=120, env=dict(os.environ, PYTHONPATH=root))
     assert out.returncode != 0 and not out.stdout
     assert "no CUDA device" in out.stderr
+
+
+def test_analysis_smf_needs_a_card():
+    # As tools/streamed_smf.py: no card, no result.
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "tools/analysis_smf.py"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=120, env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode != 0 and not out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+def test_analysis_smf_rehearses_phase_27_on_the_cpu():
+    # Phase 27's checks at 20,000 halos under a gloo group: every analysis
+    # clean, the gather mutation caught, no kernel launched, the analyzed
+    # model's loss and gradient its reference's, the lint CLI clean.
+    import json
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "tools/analysis_smf.py", "--cpu"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=root,
+                                               OMP_NUM_THREADS="2"))
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "cpu"
+    result = json.loads(lines[-2])
+    assert set(result["launches"].values()) == {0}
+    assert {"SMF", "history dense", "history fused", "joint",
+            "batched (16, 2)", "streamed", "gather mutation",
+            "lint"} == set(result["seconds"])
+    assert "the gather mutation caught" in out.stdout
