@@ -163,8 +163,11 @@ order:
     no ``nvcc``), a burst of 20 requests with ``bench_serve``'s guesses
     (2 dispatches, buckets 16 and 4, no padding, 20 x 201 launches of
     each kernel, requests 0 and 19 against solo fits at rtol 1e-6),
-    fits/hour, hop medians, peak memory and the memory truth; ``/metrics``
-    against the scheduler's counters; a NaN row in bucket 4 (its mates
+    fits/hour, hop medians; ``/metrics`` against the scheduler's
+    counters; one more request (a bucket-1 dispatch), then each
+    dispatch's peak above what the card held when it began (K = 1, 4 and
+    16) within 25% of the memory model, the Adam carry and each row's
+    autograd graph; a NaN row in bucket 4 (its mates
     bit-identical to a clean batch, a bundle whose resource ring has
     device fields, one retry in a fresh bucket); profiler windows of a
     bucket-4 dispatch of 5 steps and of ``run_adam_scan`` on the same
@@ -244,7 +247,23 @@ order:
     analyzed SMF model equal to phase 5's bit for bit (one launch each of
     kernels 1 and 2); ``python -m multigrad_tpu_torch.analysis.lint
     --device cuda --json`` in a subprocess under its own one-process
-    group: exit 0, no finding.
+    group: exit 0, no finding;
+28. sharded K: two processes on the card, a gloo world
+    (``ensemble_comm(2)``: R = 2 replica slices of one data shard each;
+    NCCL takes no two ranks on one device), started after a garbage
+    collection with this run's kernel libraries (an ``nvcc`` in a worker
+    fails the phase); each builds the SMF χ² model at 1e8 halos (a whole
+    catalog a slice) and runs K-sharded, 4 rows or 2 chains a process:
+    phase 18's 8-row batched call (its rows bit-equal to phase 18's; its
+    peak within 25% of the memory model and logged beside phase 18's
+    replicated peak), phase 19's ensemble (8 x 200, rows, losses and
+    best bit-equal), phase 20's HMC (4 chains, 50 + 150 draws, 50 + 50
+    when the run is past 990 s; chains bit-equal) and a bucket of 8
+    served through ``FitScheduler(k_sharded="auto")`` (bit-equal to this
+    process's replicated bucket of the same requests); each run's
+    launches of kernels 1 and 2 exact, and its replica-comm calls only
+    the final gathers (none in the batched call, 2 in the ensemble, 1 in
+    HMC).
 
 Any failure raises, so the run exits non-zero.  The last lines are one
 JSON object per kernel run (``kernels``; ``device_ms`` is the kernel's
@@ -256,7 +275,8 @@ polish of phase 19, phases 20 and 21, phase 22's monitored fit and phase
 23's burst; ``launches_fleet`` its launches in phase 24's workers,
 ``launches_job`` phase 25's, workers and this process, and
 ``launches_tune`` phase 26's in this process, ``launches_analysis``
-phase 27's), the ``nvidia-smi`` line,
+phase 27's, ``launches_sharded`` each phase-28 worker's), the
+``nvidia-smi`` line,
 and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -373,6 +393,9 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 # process at that size.
 SERVE_BUCKETS = (1, 4, 16)
 SERVE_BURST, SERVE_STEPS, SERVE_LR, SERVE_RTOL = 20, 200, 0.01, 1e-6
+# A bucket dispatch's measured device peak against the memory model
+# (inference.ensemble_memory_model with its graph term), phases 23 and 28.
+MEMORY_MODEL_RTOL = 0.25
 POISON_STEPS, SYNC_STEPS = 20, 5
 BENCH_SERVE_REQUESTS, BENCH_SERVE_HALOS = 64, 100_000
 BENCH_SERVE_WINDOW_S = 0.2
@@ -404,6 +427,10 @@ JOB_HMC, JOB_DRAWS, JOB_KILL_STEPS = (40, 40), 16, 20
 # starts after CUT_FOUR_AFTER_S s of the run, HMC's draws to JOB_HMC_CUT
 # when phase 25 starts after CUT_HMC_AFTER_S.
 CUT_FOUR_AFTER_S, CUT_HMC_AFTER_S, JOB_HMC_CUT = 600.0, 800.0, (20, 20)
+# Phase 28: two processes of an ensemble comm on the card; HMC's sampling
+# draws cut to SHARDED_HMC_CUT when it starts after CUT_SHARDED_HMC_AFTER_S.
+SHARDED_WORLD, SHARDED_TIMEOUT_S = 2, 400
+CUT_SHARDED_HMC_AFTER_S, SHARDED_HMC_CUT = 990.0, 50
 JOB_STAGES = ("scan", "ensemble", "laplace", "hmc", "check")
 # Phase 26, the tuner on the card: the history model at 1e8 halos in chunks
 # of HIST_CHUNK with 41 edges and six epochs, in the two sigma regimes of
@@ -939,7 +966,9 @@ def batched_phase(reset_launches, read_launches, wrappers, model):
         f"loop {s_s:.4f} s, equal bit for bit; {LHS_EVALS} forwards, no "
         f"backward")
     return dict(launches=launches, batched_ms=batched_ms, solo_ms=solo_ms,
-                peak=peak, lhs_s=b_s, lhs_single_s=s_s, lhs_peak=b_peak)
+                peak=peak, lhs_s=b_s, lhs_single_s=s_s, lhs_peak=b_peak,
+                rows=rows.cpu().numpy(), losses=losses.cpu().numpy(),
+                grads=grads.cpu().numpy())
 
 
 def ensemble_phase(reset_launches, read_launches, wrappers, model):
@@ -1668,6 +1697,7 @@ def hmc_phase(reset_launches, read_launches, wrappers, model, ens):
                                     key=lambda kv: -kv[1][0])[:8]:
         log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:100]}")
     return dict(launches=launches, dps=dps, seconds=seconds, peak=peak,
+                result=res, inv_mass=(laplace ** 2).cpu().numpy(),
                 accept=accept, rhat=res.rhat.tolist(), sd=sd.tolist(),
                 laplace=laplace.tolist(), busy=busy, small_err=small_err,
                 profile_wall_ms=wall_us / 1e3, profile_busy_ms=busy_us / 1e3,
@@ -1779,9 +1809,6 @@ def serving_phase(reset_launches, read_launches, wrappers, device="cuda",
         futs = [sched.submit(g, config=config) for g in guesses]
         sync()
         reset_launches()
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
         workspaces = workspace_keys()
         t0 = time.perf_counter()
         sched.start()
@@ -1789,14 +1816,11 @@ def serving_phase(reset_launches, read_launches, wrappers, device="cuda",
         burst_s = time.perf_counter() - t0
         sync()
         burst_launches = read_launches()
-        peak = torch.cuda.max_memory_allocated() - base if on_card else None
         stats = sched.stats
         fph = SERVE_BURST / burst_s * 3600.0
         hops = {h: statistics.median(r.hops[h] for r in results)
                 for h in ("queue_wait", "dispatch", "adam_segments",
                           "finalize")}
-        truth = [r for r in sink.records
-                 if r["event"] == "measured_vs_modeled"]
         solo = {}
         for i in (0, SERVE_BURST - 1):
             ref = model.run_adam(guess=guesses[i], nsteps=SERVE_STEPS,
@@ -1810,9 +1834,7 @@ def serving_phase(reset_launches, read_launches, wrappers, device="cuda",
             f"(the scheduler's own {stats['fits_per_hour']:.1f}); "
             f"dispatches {stats['bucket_dispatches']}, padded "
             f"{stats['rows_padded']}; hop medians (s) {hops}; launches "
-            f"{burst_launches}; peak above the model "
-            f"{None if peak is None else peak / 1e9} GB; memory truth "
-            f"{[(r['bucket'], r['measured_ratio']) for r in truth]}; "
+            f"{burst_launches}; "
             f"requests 0 and {SERVE_BURST - 1} against solo fits (bit-"
             f"identical, within rtol {SERVE_RTOL}): {solo}")
         check(stats["dispatches"] == 2
@@ -1841,10 +1863,32 @@ def serving_phase(reset_launches, read_launches, wrappers, device="cuda",
                            in stats["bucket_dispatches"].items()}
               and padded == {"": stats["rows_padded"]},
               f"/metrics against stats {stats}: {fits} {disp} {padded}")
+
+        # 8. the memory model against each bucket's dispatch -------------
+        # One more request, a bucket-1 dispatch (its record is logged
+        # once the scheduler has closed).
+        sched.submit(guesses[0], config=config).result(timeout=900)
     finally:
         sched.close()
         live.stop()
         logger.close()
+    # Each dispatch's peak above what the card held when it began, against
+    # the model: the Adam carry and each row's autograd graph (and the
+    # backward's one more row).
+    truth = [r for r in sink.records if r["event"] == "measured_vs_modeled"]
+    log("memory truth (bucket, measured GB, modeled GB, ratio): " + ", ".join(
+        f"({r['bucket']}, {(r['measured_peak_bytes'] or 0) / 1e9:.4f}, "
+        f"{r['modeled_bytes'] / 1e9:.4f}, {r['measured_ratio']})"
+        for r in truth))
+    check(sorted(r["bucket"] for r in truth) == sorted(SERVE_BUCKETS),
+          f"memory truth records: {truth}")
+    if on_card:
+        check(all(abs(r["measured_ratio"] - 1.0) <= MEMORY_MODEL_RTOL
+                  for r in truth),
+              f"a dispatch's peak is not within {MEMORY_MODEL_RTOL} of the "
+              f"memory model: {truth}")
+    peak = max((r["measured_peak_bytes"] for r in truth
+                if r["bucket"] == SERVE_BUCKETS[-1]), default=None)
 
     # 3. NaN poison on the card ------------------------------------------
     g = serve_guesses(4)
@@ -3295,6 +3339,293 @@ def analysis_phase(reset_launches, read_launches, wrappers, smf_ref,
     return out
 
 
+# ---------------------------------------------------------------------- #
+# 28. sharded K: two processes on the card, an ensemble comm of R = 2
+# ---------------------------------------------------------------------- #
+def sharded_worker(rank, world, init_file, inputs, out_file):
+    """Phase 28's worker: rank ``rank`` of a gloo world of ``world``
+    processes on card 0, ``ensemble_comm(world)`` (R = world, D = 1), the
+    SMF χ² model at the inputs' halo count (each replica slice the whole
+    catalog).  Runs phase 18's batched call, phase 19's ensemble, phase
+    20's HMC and a served bucket, K-sharded, on the inputs in ``inputs``;
+    writes its rows, counts, replica-comm traffic and memory to
+    ``out_file``.  On the card it loads the kernel libraries the parent
+    built (an ``nvcc`` here is counted); on the CPU (a rehearsal) the
+    kernels' plain versions run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, HERE)
+    inp = dict(np.load(inputs))
+    device = str(inp["device"])
+    on_card = device == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if on_card:
+        torch.cuda.set_device(0)
+    from multigrad_tpu_torch.utils.util import add_compile_observer
+    builds = []
+    add_compile_observer(lambda key, seconds, hit: builds.append(bool(hit)))
+    from multigrad_tpu_torch.inference import (ensemble_memory_model,
+                                               row_graph_bytes, run_hmc,
+                                               run_multistart_adam)
+    from multigrad_tpu_torch.models import SMFChi2Model, make_smf_data
+    from multigrad_tpu_torch.ops import cuda_build
+    from multigrad_tpu_torch.ops import erf_kernels as ek
+    from multigrad_tpu_torch.parallel import ensemble_comm
+    from multigrad_tpu_torch.serve import FitScheduler
+    from multigrad_tpu_torch.telemetry import CommCounter
+    if on_card:
+        cuda_build.build()
+    wrappers = (ek.erf_counts_fwd_cuda, ek.erf_counts_bwd_cuda)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        comm = ensemble_comm(world)
+        model = SMFChi2Model(aux_data=make_smf_data(
+            int(inp["halos"]), comm=comm, device=device), comm=comm)
+        ks = model.k_sharding(2)
+        leaves = model.aux_leaves()
+
+        def run(name, fn):
+            """``fn()``, its launches of kernels 1 and 2 (counts at 0 just
+            before), seconds, and calls on the data and replica comms."""
+            sync()
+            for w in wrappers:
+                w.launches = 0
+            with CommCounter() as cc:
+                t0 = time.perf_counter()
+                result = fn()
+                sync()
+            out[f"{name}_s"] = np.array(time.perf_counter() - t0)
+            out[f"{name}_launches"] = np.array([w.launches for w in wrappers])
+            out[f"{name}_axes"] = np.array([
+                cc.calls_by_axis.get("data", 0),
+                cc.calls_by_axis.get("replica", 0),
+                cc.bytes_by_axis.get("replica", 0)])
+            return result
+
+        # Phase 18's rows, this process's half, and its memory.
+        rows = torch.from_numpy(inp["rows"]).to(device)
+        program = model.batched_loss_and_grad_fn(k_sharded=True)
+        program(ks.local(rows), leaves)          # warm-up
+
+        def batched():
+            return run("batched", lambda: program(ks.local(rows), leaves))
+        (losses, grads), peak = peak_above(batched) if on_card \
+            else (batched(), 0)
+        graph = row_graph_bytes(model)
+        out.update(losses=losses.cpu().numpy(), grads=grads.cpu().numpy(),
+                   memory=np.array([peak, ensemble_memory_model(
+                       BATCH_K, 2, 0, n_replicas=world, graph_bytes=graph),
+                       ensemble_memory_model(BATCH_K, 2, 0,
+                                             graph_bytes=graph)]))
+
+        # Phase 19's ensemble.
+        kw = dict(param_bounds=POSTERIOR_BOUNDS, n_starts=BATCH_K,
+                  learning_rate=ENSEMBLE_LR, seed=0, k_sharded=True)
+        run_multistart_adam(model, nsteps=2, **kw)  # warm-up
+        ens = run("ensemble", lambda: run_multistart_adam(
+            model, nsteps=ENSEMBLE_STEPS, **kw))
+        out.update(ens_params=ens.params.cpu().numpy(),
+                   ens_losses=ens.losses.cpu().numpy(),
+                   ens_best=ens.best_params.cpu().numpy(),
+                   ens_sharded=np.array(ens.k_sharded))
+
+        # Phase 20's HMC from its start.
+        hmc_kw = dict(step_size=HMC_STEP, num_leapfrog=HMC_LEAPFROG,
+                      inv_mass=torch.from_numpy(inp["inv_mass"]).to(device),
+                      randkey=int(inp["randkey"]), k_sharded=True)
+        init = torch.from_numpy(inp["hmc_init"]).to(device)
+        run_hmc(model, init, num_samples=1, num_warmup=1, **hmc_kw)
+        res = run("hmc", lambda: run_hmc(
+            model, init, num_samples=int(inp["hmc_samples"]),
+            num_warmup=HMC_WARMUP, **hmc_kw))
+        for field in ("samples", "potential", "step_size", "divergences",
+                      "accept_prob"):
+            out[f"hmc_{field}"] = getattr(res, field)
+
+        # A served bucket, "auto" sharded.
+        def serve():
+            with FitScheduler(model, buckets=(BATCH_K,), batch_window_s=0.0,
+                              start=False) as sched:
+                futs = [sched.submit(g, nsteps=SERVE_STEPS,
+                                     learning_rate=SERVE_LR)
+                        for g in inp["serve_guesses"]]
+                sched.start()
+                return [f.result(timeout=600) for f in futs], sched.k_sharded
+
+        results, flag = run("serve", serve)
+        out.update(serve_traj=np.stack([r.traj for r in results]),
+                   serve_loss=np.array([r.loss for r in results]),
+                   serve_bucket=np.array([r.bucket for r in results]),
+                   serve_sharded=np.array(flag),
+                   builds=np.array([len(builds), builds.count(False)]))
+    finally:
+        dist.destroy_process_group()
+    np.savez(out_file, **out)
+    return 0
+
+
+def sharded_phase(refs, t_start, device="cuda", halos=BIG_HALOS):
+    """Phase 28: K sharded over two processes on the card (a gloo world,
+    ``ensemble_comm(2)``: R = 2, D = 1), each the SMF χ² model at
+    ``halos``; their batched rows, ensemble, HMC chains and served bucket
+    against phases 18, 19 and 20 and this process's replicated bucket,
+    bit for bit; launches, replica-comm traffic, memory.  ``refs`` holds
+    the earlier phases' inputs and results (numpy).  ``device="cpu"``
+    rehearses it with the kernels' plain versions (no memory check)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from multigrad_tpu_torch.models import SMFChi2Model, make_smf_data
+    from multigrad_tpu_torch.serve import FitScheduler
+    on_card = device == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    world = SHARDED_WORLD
+    elapsed = time.perf_counter() - t_start
+    samples = HMC_SAMPLES if elapsed < CUT_SHARDED_HMC_AFTER_S \
+        else SHARDED_HMC_CUT
+    if samples != HMC_SAMPLES:
+        log(f"phase 28: HMC cut to {HMC_WARMUP} + {samples} draws for time "
+            f"(the chains' first {samples} draws held against phase 20's)")
+    work = os.path.join(HERE, "build", "sharded_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    inputs = os.path.join(work, "inputs.npz")
+    guesses = serve_guesses(BATCH_K)
+    np.savez(inputs, rows=refs["rows"], hmc_init=refs["hmc_init"],
+             inv_mass=refs["inv_mass"], randkey=refs["randkey"],
+             hmc_samples=samples, serve_guesses=guesses, device=device,
+             halos=halos)
+    outs = [os.path.join(work, f"rank{r}.npz") for r in range(world)]
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+            for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-worker",
+         str(r), str(world), os.path.join(work, "init"), inputs, outs[r]],
+        cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    try:
+        # The replicated bucket here while the workers start.
+        model = SMFChi2Model(aux_data=make_smf_data(halos, device=device))
+        with FitScheduler(model, buckets=(BATCH_K,), batch_window_s=0.0,
+                          start=False) as sched:
+            futs = [sched.submit(g, nsteps=SERVE_STEPS,
+                                 learning_rate=SERVE_LR) for g in guesses]
+            sched.start()
+            replicated = [f.result(timeout=600) for f in futs]
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+        for p in procs:
+            p.wait(timeout=SHARDED_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            check(False, f"phase 28's worker {r} exited {p.returncode}: "
+                  f"{tail}")
+    ranks = [dict(np.load(o)) for o in outs]
+    k_local = BATCH_K // world
+    want_hmc = refs["hmc"]
+    per_run = {"batched": k_local, "ensemble": k_local * (ENSEMBLE_STEPS + 1),
+               "hmc": (HMC_CHAINS // world) * (1 + (HMC_WARMUP + samples)
+                                               * HMC_LEAPFROG),
+               "serve": k_local * (SERVE_STEPS + 1)}
+    # The replica comm's calls: the final gathers only.  (The served
+    # bucket's run on the scheduler's thread, which a counter on this
+    # thread does not see.)
+    replica_calls = {"batched": 0, "ensemble": 2, "hmc": 1}
+    for r, out in enumerate(ranks):
+        rows = slice(r * k_local, (r + 1) * k_local)
+        check(np.array_equal(out["losses"], refs["losses"][rows])
+              and np.array_equal(out["grads"], refs["grads"][rows]),
+              f"phase 28 rank {r}: its batched rows differ from phase 18's")
+        check(bool(out["ens_sharded"])
+              and np.array_equal(out["ens_params"], refs["ens_params"])
+              and np.array_equal(out["ens_losses"], refs["ens_losses"])
+              and np.array_equal(out["ens_best"], refs["ens_best"]),
+              f"phase 28 rank {r}: the ensemble differs from phase 19's")
+        same = {f: np.array_equal(out[f"hmc_{f}"], want_hmc[f][:, :samples]
+                                  if f in ("samples", "potential")
+                                  else want_hmc[f])
+                for f in (("samples", "potential", "step_size")
+                          + (("divergences", "accept_prob")
+                             if samples == HMC_SAMPLES else ()))}
+        check(all(same.values()),
+              f"phase 28 rank {r}: HMC differs from phase 20's: {same}")
+        check(bool(out["serve_sharded"])
+              and out["serve_bucket"].tolist() == [BATCH_K] * BATCH_K
+              and all(np.array_equal(out["serve_traj"][i], res.traj)
+                      and out["serve_loss"][i] == res.loss
+                      for i, res in enumerate(replicated)),
+              f"phase 28 rank {r}: the served bucket differs from the "
+              "replicated one")
+        # On the CPU the kernels' plain versions run: no launch.
+        launches = {k: out[f"{k}_launches"].tolist() for k in per_run}
+        check(all(launches[k] == [n, n] if on_card else [0, 0]
+                  for k, n in per_run.items()),
+              f"phase 28 rank {r}: launches of kernels 1 and 2 {launches}, "
+              f"expected {per_run} on the card")
+        axes = {k: out[f"{k}_axes"].tolist() for k in per_run}
+        check(all(axes[k][1] == n for k, n in replica_calls.items()),
+              f"phase 28 rank {r}: replica-comm calls {axes}, expected "
+              f"{replica_calls} (the final gathers only)")
+        check(out["builds"][1] == 0,
+              f"phase 28 rank {r} ran nvcc: {out['builds']}")
+        peak, modeled, modeled_rep = out["memory"].tolist()
+        if on_card:
+            check(abs(peak / modeled - 1.0) <= MEMORY_MODEL_RTOL,
+                  f"phase 28 rank {r}: the sharded call's peak {peak} B is "
+                  f"not within {MEMORY_MODEL_RTOL} of the model's "
+                  f"{modeled} B")
+        log(f"phase 28 rank {r}: batched {k_local} rows "
+            f"{float(out['batched_s']):.4f} s, ensemble "
+            f"{float(out['ensemble_s']):.4f} s, HMC "
+            f"{float(out['hmc_s']):.4f} s, served bucket "
+            f"{float(out['serve_s']):.4f} s; launches of kernels 1 and 2 "
+            f"{launches}; comm calls (data, replica, replica bytes) {axes}; "
+            f"peak of the sharded call {peak / 1e9:.4f} GB (model "
+            f"{modeled / 1e9:.4f}, replicated model {modeled_rep / 1e9:.4f}"
+            f", phase 18's replicated peak {refs['peak'] / 1e9:.4f} GB); "
+            f"libraries loaded {int(out['builds'][0])}, built "
+            f"{int(out['builds'][1])}")
+    log(f"sharded K, {world} processes on {device} (R = {world}, D = 1) at "
+        f"{halos:,} halos: batched rows, ensemble ({BATCH_K} x "
+        f"{ENSEMBLE_STEPS}), HMC ({HMC_CHAINS} chains, {HMC_WARMUP} + "
+        f"{samples}) and a served bucket of {BATCH_K} bit-equal to phases "
+        f"18-20 and the replicated bucket; phase {seconds:.1f} s")
+    totals = [sum(int(out[f"{k}_launches"][0]) for k in per_run)
+              for out in ranks]
+    return dict(seconds=seconds, samples=samples, totals=totals,
+                peaks=[float(out["memory"][0]) for out in ranks],
+                modeled=float(ranks[0]["memory"][1]),
+                modeled_replicated=float(ranks[0]["memory"][2]),
+                phase_s={k: [float(out[f"{k}_s"]) for out in ranks]
+                         for k in per_run},
+                replica={k: [out[f"{k}_axes"].tolist() for out in ranks]
+                         for k in per_run})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4392,6 +4723,19 @@ def main():
     hmc = hmc_phase(reset_launches, read_launches, wrappers,
                     posterior_model, ensemble["ens"])
     hmc_start = hmc.pop("start")
+    hmc_result = hmc.pop("result")
+    # What phase 28 runs again sharded, and holds its results against.
+    sharded_refs = dict(
+        rows=batched["rows"], losses=batched["losses"],
+        grads=batched["grads"], peak=batched["peak"],
+        ens_params=ensemble["ens"].params.cpu().numpy(),
+        ens_losses=ensemble["ens"].losses.cpu().numpy(),
+        ens_best=ensemble["ens"].best_params.cpu().numpy(),
+        hmc_init=hmc_start[0].cpu().numpy(), inv_mass=hmc.pop("inv_mass"),
+        randkey=hmc_start[1]["randkey"],
+        hmc={f: getattr(hmc_result, f) for f in (
+            "samples", "potential", "step_size", "divergences",
+            "accept_prob")})
     torch.cuda.empty_cache()
 
     # 21. the first NCCL run, so no earlier phase sees a group; phase 22
@@ -4446,6 +4790,10 @@ def main():
     analysis = analysis_phase(reset_launches, read_launches, wrappers,
                               smf_first, fused_kwargs, t_start)
     torch.cuda.empty_cache()
+
+    # 28. sharded K: two processes of an ensemble comm on the card --------
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 28")
+    sharded = sharded_phase(sharded_refs, t_start)
 
     # summary -----------------------------------------------------------
 
@@ -4618,7 +4966,12 @@ def main():
                  launches_tune=tune["launches"][k["name"]],
                  # Phase 27: none in the analysis; one each of kernels 1
                  # and 2 in the loss and gradient after it.
-                 launches_analysis=analysis["launches"][k["name"]])
+                 launches_analysis=analysis["launches"][k["name"]],
+                 # Phase 28: each worker process's launches (batched
+                 # rows, ensemble, HMC and the served bucket).
+                 launches_sharded=(sharded["totals"] if k["name"] in (
+                     "erf_counts_fwd", "erf_counts_bwd")
+                     else [0] * SHARDED_WORLD))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     on_path = {"launches_fleet": ("erf_counts_fwd", "erf_counts_bwd"),
@@ -4630,6 +4983,10 @@ def main():
     check(all(k[key] > 0 for key, names in on_path.items()
               for k in kernels if k["name"] in names),
           f"a kernel of phase 24, 25 or 26 was not launched: {kernels}")
+    check(all(n > 0 for k in kernels
+              if k["name"] in ("erf_counts_fwd", "erf_counts_bwd")
+              for n in k["launches_sharded"]),
+          f"kernel 1 or 2 was not launched in a phase-28 worker: {kernels}")
     log(f"joint path: {joint_sps:.3f} steps/s, peak {joint_peak_gb:.3f} GB "
         "at 1e8 + 1e5 halos")
     log("streamed SMF at 1e8: " + ", ".join(
@@ -4690,6 +5047,13 @@ def main():
         f"({job['fits_per_hour']:.1f} fits/hour), stages {job['stages']}, "
         f"requeued {job['requeued']}, the ensemble best "
         f"{job['distance']} from JOINT_TRUTH")
+    log(f"sharded K: {SHARDED_WORLD} processes, phase "
+        f"{sharded['seconds']:.1f} s, HMC {HMC_WARMUP} + "
+        f"{sharded['samples']} draws; seconds by run {sharded['phase_s']}; "
+        f"peaks of the sharded 8-row call {sharded['peaks']} B against the "
+        f"model's {sharded['modeled']} B (replicated model "
+        f"{sharded['modeled_replicated']} B, phase 18 {batched['peak']} B); "
+        f"replica-comm calls {sharded['replica']}")
     log("analysis: host seconds a call " + ", ".join(
         f"{label} {secs:.2f}" for label, secs in
         analysis["seconds"].items()))
@@ -4705,4 +5069,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(*sys.argv[2:]))
     sys.exit(main())

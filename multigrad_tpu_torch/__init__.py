@@ -45,8 +45,8 @@ into bins in one launch), forward and backward.  The history model's
 integration is PyTorch ops on either device.
 """
 from ._version import __version__  # noqa: F401
-from .parallel.mesh import (MeshComm, global_comm,  # noqa: F401
-                            hybrid_comm, split_subcomms,
+from .parallel.mesh import (MeshComm, ensemble_comm,  # noqa: F401
+                            global_comm, hybrid_comm, split_subcomms,
                             split_subcomms_by_node)
 from .parallel.collectives import (all_gather, reduce_sum,  # noqa: F401
                                    scatter_from_local, scatter_nd)
@@ -93,8 +93,8 @@ from .tune import (TuneResult, TuningTable, tune_buckets,  # noqa: F401
 
 __all__ = [
     "OnePointModel", "OnePointGroup", "param_view", "reduce_sum", "util",
-    "MeshComm", "global_comm", "hybrid_comm", "split_subcomms",
-    "split_subcomms_by_node", "all_gather", "scatter_nd",
+    "MeshComm", "ensemble_comm", "global_comm", "hybrid_comm",
+    "split_subcomms", "split_subcomms_by_node", "all_gather", "scatter_nd",
     "scatter_from_local", "distributed", "diffdesi",
     "run_adam", "run_adam_scan", "run_adam_unbounded", "run_bfgs",
     "run_lbfgs_scan", "simple_grad_descent",

@@ -25,9 +25,10 @@ brings up the process group through
 :func:`~multigrad_tpu_torch.parallel.distributed.initialize`, so the
 models' comms record their collectives and the comm-scaling check has
 sites to compare; a single process with no launcher runs every check
-with comms that reduce nothing.  ``group_mpmd`` needs 2 processes and
-``ensemble_sharded`` waits for sharded K (ROADMAP Queue 1 item 6): both
-say so on stderr and are skipped.
+with comms that reduce nothing.  ``group_mpmd`` and ``ensemble_sharded``
+need a launcher's world of at least 2 processes (a replica axis of 2 over
+:func:`~multigrad_tpu_torch.parallel.ensemble_comm`): below that both say
+so on stderr and are skipped.
 
 stdlib-argparse only; exit status 0 = clean, 1 = findings, 2 = usage.
 """
@@ -93,9 +94,22 @@ def _build_targets(names, num_halos: int, device="cuda"):
                 bin_window=fused_bin_window(edges, 0.3), device=device),
             comm=comm), torch.tensor(TRUTH, dtype=torch.float32)
     if "ensemble_sharded" in names:
-        print("lint: skipping ensemble_sharded (the K axis over a replica "
-              "axis waits for sharded K, ROADMAP Queue 1 item 6)",
-              file=sys.stderr)
+        # The sharded-K ensemble path: a (K, ndim) batch partitioned over
+        # the replica axis of an (R, D) ensemble comm.  Two static
+        # proofs: catalog comm-scaling (the rows' O(|y| + |params|)
+        # data-axis bound untouched by catalog growth) and k-scaling
+        # (doubling K scales every payload at most linearly).
+        if comm.size < 2:
+            print("lint: skipping ensemble_sharded (needs >= 2 processes "
+                  "for a replica axis)", file=sys.stderr)
+        else:
+            from ..parallel.mesh import ensemble_comm
+            ecomm = ensemble_comm(2)
+            yield ("ensemble_sharded", SMFModel(
+                aux_data=make_smf_data(num_halos, comm=ecomm,
+                                       device=device), comm=ecomm),
+                torch.zeros((8, 2)),
+                dict(kinds=("batched_loss_and_grad_sharded",), k_scale=2))
     if "serve_bucket" in names:
         # The scheduler's bucketed dispatch: K tenants' fits through ONE
         # (K, ndim) batched program, whose all-reduces carry (K, |y|)

@@ -46,7 +46,8 @@ from typing import Any, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .model import (OnePointModel, _first_tensor, _require_replicated_k,
+from .model import (OnePointModel, _first_tensor, cached_program,
+                    k_shard_axis_of, require_k_shard_axis,
                     joint_loss_and_grad)
 from ..optim import adam as _adam
 from ..optim import bfgs as _bfgs
@@ -266,19 +267,50 @@ class OnePointGroup:
         member's chain rule in one call, 2 all-reduces whatever the
         number of members and rows (see
         :meth:`OnePointModel.batched_loss_and_grad_fn`); the fused path
-        only."""
+        only.  ``k_sharded=True`` is the K-partitioned sibling on this
+        process's rows (the members on an ensemble comm), as the model's;
+        both are cached on the group."""
         self._require_fused()
-        _require_replicated_k(k_sharded)
+        if k_sharded:
+            self._require_k_shard_axis()
 
-        def program(params, aux_leaves, key=None):
-            params = self._params(params)
-            if params.dim() != 2:
-                raise ValueError("batched params must be (K, ndim), got "
-                                 f"shape {tuple(params.shape)}")
-            return self._fused_loss_and_grad(
-                params, key if with_key else None,
-                self._rebound(aux_leaves))
-        return program
+        def build():
+            def program(params, aux_leaves, key=None):
+                params = self._params(params)
+                if params.dim() != 2:
+                    raise ValueError("batched params must be (K, ndim), "
+                                     f"got shape {tuple(params.shape)}")
+                return self._fused_loss_and_grad(
+                    params, key if with_key else None,
+                    self._rebound(aux_leaves))
+            return program
+        return cached_program(
+            self, ("batched_loss_and_grad", bool(with_key), bool(k_sharded)),
+            build)
+
+    # Sharded K over the shared comm (parity: core/group.py:342-400 of
+    # the JAX package).
+    @property
+    def k_shard_axis(self):
+        """The replica axis of the members' shared ensemble comm, else
+        ``None`` (see :attr:`OnePointModel.k_shard_axis`)."""
+        return k_shard_axis_of(self.comm) if self.fused else None
+
+    @property
+    def k_shard_replicas(self) -> int:
+        return self.comm.replica.size if self.k_shard_axis else 1
+
+    def _require_k_shard_axis(self) -> str:
+        self._require_fused()
+        return require_k_shard_axis(self.comm)
+
+    def k_sharding(self, ndim: int = 2):
+        """The row partition over the replica axis (see
+        :meth:`OnePointModel.k_sharding`)."""
+        from ..parallel.mesh import KSharding
+        del ndim
+        self._require_k_shard_axis()
+        return KSharding(self.comm.replica)
 
     # ------------------------------------------------------------------ #
     # Optimizer proxies (parity: multigrad.py:583-599)

@@ -70,21 +70,43 @@ def psum_joined(tensors, comm):
         tensors, flat.split([t.numel() for t in tensors]))]
 
 
-#: What ``k_sharded=True`` raises: the port has no replica axis yet.
-K_SHARDED_NOT_PORTED = (
-    "k_sharded=True (the K axis partitioned over a replica axis of "
-    "ensemble_comm) is not ported yet: ROADMAP.md Queue 1 item 6, "
-    "sharded K; pass k_sharded=False")
-
-
 #: Guards the gradient-noise-scale ratio against a zero mean gradient (the
 #: JAX package's ``GNS_EPS``).
 GNS_EPS = 1e-20
 
 
-def _require_replicated_k(k_sharded):
-    if k_sharded:
-        raise NotImplementedError(K_SHARDED_NOT_PORTED)
+# ---------------------------------------------------------------------- #
+# Sharded K: the replica axis of an ensemble comm (shared by the model and
+# the fused group)
+# ---------------------------------------------------------------------- #
+def k_shard_axis_of(comm) -> Optional[str]:
+    """The axis a comm's K batch axis can shard over: an
+    :func:`~multigrad_tpu_torch.parallel.ensemble_comm`'s replica axis, or
+    ``None``."""
+    free = comm.free_axes if comm is not None else ()
+    return free[-1] if free else None
+
+
+def require_k_shard_axis(comm) -> str:
+    """:func:`k_shard_axis_of`, raising ``ValueError`` (naming
+    ``ensemble_comm``) where there is none."""
+    axis = k_shard_axis_of(comm)
+    if axis is None:
+        raise ValueError(
+            "this model's comm has no free replica axis to shard the K "
+            "batch axis over; build it on a 2-level comm with "
+            "multigrad_tpu_torch.parallel.ensemble_comm(n_replicas=R)")
+    return axis
+
+
+def cached_program(owner, key, build):
+    """``owner``'s program ``key``, built once by ``build()`` and kept in
+    its ``_program_cache`` (a sibling entry a variant), so a caller gets
+    the same callable back every time."""
+    cache = owner.__dict__.setdefault("_program_cache", {})
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
 
 
 def psum_tree(tree, comm):
@@ -245,6 +267,37 @@ class OnePointModel:
 
     def __eq__(self, other):
         return self is other
+
+    # ------------------------------------------------------------------ #
+    # Sharded K (parity: core/model.py:213-252 of the JAX package)
+    # ------------------------------------------------------------------ #
+    @property
+    def k_shard_axis(self) -> Optional[str]:
+        """The axis the ensemble K batch axis can shard over: the replica
+        axis of an :func:`~multigrad_tpu_torch.parallel.ensemble_comm`,
+        else ``None``."""
+        return k_shard_axis_of(self.comm)
+
+    @property
+    def k_shard_replicas(self) -> int:
+        """The number of replica slices (1 without a replica axis)."""
+        return self.comm.replica.size if self.k_shard_axis else 1
+
+    def _require_k_shard_axis(self) -> str:
+        return require_k_shard_axis(self.comm)
+
+    def k_sharding(self, ndim: int = 2):
+        """The row partition of a ``(K, ...)`` batch over the replica axis
+        (a :class:`~multigrad_tpu_torch.parallel.KSharding`: this
+        process's rows, and the gather of a result): what the K-sharded
+        entry points place parameter batches, Adam carries and
+        trajectories with.  ``ndim``, the batch's rank, is the JAX
+        package's argument: the rows partition whatever it is.
+        ``ValueError`` without a replica axis."""
+        from ..parallel.mesh import KSharding
+        del ndim
+        self._require_k_shard_axis()
+        return KSharding(self.comm.replica)
 
     # ------------------------------------------------------------------ #
     @property
@@ -450,21 +503,37 @@ class OnePointModel:
         one backward pass over all the rows, ONE all-reduce of the
         ``(K, ndim)`` gradient; 2 all-reduces whatever K, and row k equal
         to a solo :meth:`calc_loss_and_grad_from_params` at ``params[k]``
-        bit for bit.  Loss aux values are dropped.  ``k_sharded=True``
-        (the K axis over a replica axis) is not ported yet."""
-        _require_replicated_k(k_sharded)
+        bit for bit.  Loss aux values are dropped.
 
-        def program(params, aux_leaves, key=None):
-            model = self._with_leaves(aux_leaves)
-            kwargs = self._key_kwargs(key) if with_key else {}
-            params = model._params(params)
-            if params.dim() != 2:
-                raise ValueError("batched params must be (K, ndim), got "
-                                 f"shape {tuple(params.shape)}")
-            rows, grads = joint_loss_and_grad((model,), model.comm, params,
-                                              kwargs)
-            return torch.stack([loss for ((loss, _),) in rows]), grads
-        return program
+        ``k_sharded=True`` is the K-partitioned sibling (the JAX
+        package's ``"batched_loss_and_grad_sharded"``): the model must be
+        on an :func:`~multigrad_tpu_torch.parallel.ensemble_comm`
+        (``ValueError`` otherwise), and the program takes THIS process's
+        rows of the batch (``model.k_sharding(2).local(batch)``) and
+        returns their losses and gradients, nothing gathered: K/R rows
+        whose graphs the process holds, still 2 all-reduces on the data
+        comm whatever K, none on the replica comm, each row the
+        replicated call's bit for bit where the data comm has the same
+        width.  Both programs are cached on the model, siblings, so a
+        caller gets the same callable back."""
+        if k_sharded:
+            self._require_k_shard_axis()
+
+        def build():
+            def program(params, aux_leaves, key=None):
+                model = self._with_leaves(aux_leaves)
+                kwargs = self._key_kwargs(key) if with_key else {}
+                params = model._params(params)
+                if params.dim() != 2:
+                    raise ValueError("batched params must be (K, ndim), "
+                                     f"got shape {tuple(params.shape)}")
+                rows, grads = joint_loss_and_grad((model,), model.comm,
+                                                  params, kwargs)
+                return torch.stack([loss for ((loss, _),) in rows]), grads
+            return program
+        return cached_program(
+            self, ("batched_loss_and_grad", bool(with_key), bool(k_sharded)),
+            build)
 
     @torch.no_grad()
     def run_lhs_param_scan(self, xmins, xmaxs, n_dim, num_evaluations,

@@ -25,10 +25,12 @@ from .fisher import (FisherResult, fisher_diagnostics,  # noqa: F401
                      sumstats_jacobian)
 from .hmc import (HMCResult, effective_sample_size, run_hmc,  # noqa: F401
                   split_rhat)
-from .ensemble import (EnsembleResult, batched_fit_wrapper,  # noqa: F401
+from .ensemble import (DEFAULT_K_BUDGET_BYTES,  # noqa: F401
+                       EnsembleResult, batched_fit_wrapper,
                        ensemble_memory_model, hmc_init_from_ensemble,
                        max_k_for_budget, resolve_k_sharded,
-                       run_multistart_adam, run_multistart_lbfgs)
+                       row_graph_bytes, run_multistart_adam,
+                       run_multistart_lbfgs)
 
 __all__ = [
     "FisherResult", "fisher_information", "laplace_covariance",
@@ -37,5 +39,5 @@ __all__ = [
     "EnsembleResult", "run_multistart_adam", "run_multistart_lbfgs",
     "hmc_init_from_ensemble",
     "batched_fit_wrapper", "ensemble_memory_model", "max_k_for_budget",
-    "resolve_k_sharded",
+    "resolve_k_sharded", "row_graph_bytes", "DEFAULT_K_BUDGET_BYTES",
 ]

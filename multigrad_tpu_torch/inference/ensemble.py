@@ -13,19 +13,23 @@ coordinates), each evaluation one row of the same batched call.
 :func:`hmc_init_from_ensemble` turns the winning basin into chain starts
 for :func:`~multigrad_tpu_torch.inference.run_hmc`.
 
-Not ported yet: sharded K (no replica axis: ``k_sharded="auto"``
-resolves to ``False`` and ``True`` raises) and the monitoring arguments.
+Sharded K: on an :func:`~multigrad_tpu_torch.parallel.ensemble_comm`
+the K axis partitions over the replica axis (``k_sharded``), each
+process holding K/R rows of the parameters, moments, trajectory and,
+the port's own term, the rows' autograd graphs
+(:func:`ensemble_memory_model`, :func:`row_graph_bytes`).
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..core.model import K_SHARDED_NOT_PORTED
+from ..core.model import cached_program
 from ..optim import adam as _adam
 from ..optim import bfgs as _bfgs
 from ..optim.transforms import bounds_to_arrays
@@ -36,7 +40,8 @@ __all__ = ["EnsembleResult", "batched_fit_wrapper",
            "hmc_init_from_ensemble",
            "ensemble_memory_model", "max_k_for_budget",
            "resolve_k_sharded", "resolve_k_shard_topology",
-           "k_shards_bucket", "pad_k_to_replicas"]
+           "k_shards_bucket", "pad_k_to_replicas", "row_graph_bytes",
+           "DEFAULT_K_BUDGET_BYTES", "GRAPH_BYTES_PER_CATALOG_ROW"]
 
 #: Per-member resident rows of the batched Adam fit beyond the
 #: trajectory: params, Adam's two moment sets and the update transient,
@@ -46,14 +51,45 @@ ENSEMBLE_STATE_ROWS = 4
 #: Bytes of a float32 item: the port's parameters and moments.
 ITEMSIZE = 4
 
+#: Default per-device memory budget of the ``k_sharded="auto"`` rule (the
+#: JAX package's; overridable per call and with ``MGT_K_BUDGET_BYTES``).
+DEFAULT_K_BUDGET_BYTES = 1 << 30
+
+#: What one row of the port's batched loss and gradient holds until the
+#: backward, a catalog row: the forward's float32 ``values``, which the
+#: erf kernel saves as its input (the SMF model's ``log_mh + p0``: its
+#: only catalog-sized tensor).  The one place the graph term is declared
+#: (ROADMAP Queue 2 item 9); :func:`row_graph_bytes` reads it.
+GRAPH_BYTES_PER_CATALOG_ROW = 4
+
+
+def row_graph_bytes(model) -> int:
+    """Bytes of one row's autograd graph in this process's batched call:
+    :data:`GRAPH_BYTES_PER_CATALOG_ROW` a catalog row of the process's
+    shard (each member's, in a group).  The port's batched call is a host
+    loop with one backward over all rows, so every row's graph lives
+    until that backward (the JAX package's vmapped program holds none)."""
+    from ..tune.table import catalog_rows
+    return GRAPH_BYTES_PER_CATALOG_ROW * sum(
+        catalog_rows(m.aux_data) for m in getattr(model, "models", (model,)))
+
+
 def ensemble_memory_model(k: int, ndim: int, nsteps: int, *,
                           n_replicas: int = 1, catalog_bytes: int = 0,
                           n_devices: Optional[int] = None,
-                          itemsize: Optional[int] = None) -> int:
+                          itemsize: Optional[int] = None,
+                          graph_bytes: int = 0) -> int:
     """Per-device bytes of a ``(K, ndim)`` batched Adam fit: the ``(nsteps
     + 1, K, ndim)`` trajectory plus :data:`ENSEMBLE_STATE_ROWS` state rows
     a member, divided by ``n_replicas`` when K is sharded, plus the
-    catalog's share, ``catalog_bytes · n_replicas / n_devices``."""
+    catalog's share, ``catalog_bytes · n_replicas / n_devices`` (the JAX
+    package's arithmetic).
+
+    The port's term, ``graph_bytes`` (:func:`row_graph_bytes` of the
+    model): each of a process's K/R rows holds its graph until the
+    backward, and the backward adds one row's cotangent of the same size
+    while it runs, so ``(K/R + 1) · graph_bytes``, the dispatch's own
+    bytes above what the process held before it."""
     itemsize = ITEMSIZE if itemsize is None else int(itemsize)
     r = max(int(n_replicas), 1)
     k_local = math.ceil(max(int(k), 0) / r)
@@ -62,55 +98,84 @@ def ensemble_memory_model(k: int, ndim: int, nsteps: int, *,
     data = 0
     if catalog_bytes and n_devices:
         data = int(catalog_bytes) * r // max(int(n_devices), 1)
-    return int(state + data)
+    graph = (k_local + 1) * int(graph_bytes) if k_local else 0
+    return int(state + data + graph)
 
 
 def max_k_for_budget(budget_bytes: int, ndim: int, nsteps: int, *,
                      n_replicas: int = 1, catalog_bytes: int = 0,
                      n_devices: Optional[int] = None,
-                     itemsize: Optional[int] = None) -> int:
+                     itemsize: Optional[int] = None,
+                     graph_bytes: int = 0) -> int:
     """The largest K whose :func:`ensemble_memory_model` estimate fits
-    ``budget_bytes`` a device (0 when the catalog's share alone does
-    not)."""
+    ``budget_bytes`` a device (0 when the catalog's share, and the
+    backward's one row of ``graph_bytes``, alone do not): ×R with
+    ``n_replicas``."""
     itemsize = ITEMSIZE if itemsize is None else int(itemsize)
     r = max(int(n_replicas), 1)
-    data = 0
+    data = int(graph_bytes)
     if catalog_bytes and n_devices:
-        data = int(catalog_bytes) * r // max(int(n_devices), 1)
+        data += int(catalog_bytes) * r // max(int(n_devices), 1)
     per_member = int(ndim) * itemsize \
-        * (int(nsteps) + 1 + ENSEMBLE_STATE_ROWS)
+        * (int(nsteps) + 1 + ENSEMBLE_STATE_ROWS) + int(graph_bytes)
     if budget_bytes <= data or per_member <= 0:
         return 0
     return ((int(budget_bytes) - data) // per_member) * r
 
 
+def _k_budget_bytes(budget=None) -> int:
+    if budget is not None:
+        return int(budget)
+    env = os.environ.get("MGT_K_BUDGET_BYTES")
+    return int(env) if env else DEFAULT_K_BUDGET_BYTES
+
+
 def resolve_k_shard_topology(model, k_sharded="auto"):
     """``(sharded, n_replicas)`` for a ``k_sharded`` knob (``"auto"`` or a
-    bool).  The port has no replica axis yet: ``"auto"`` and ``False``
-    give ``(False, 1)``, and ``True`` raises."""
+    bool): the one rule every sharded-K consumer shares (the ensemble,
+    the scheduler, warmup, the tuner, the HMC stage).  ``True`` demands a
+    replica axis (``ValueError`` naming ``ensemble_comm`` without one),
+    ``False`` pins the replicated layout, and ``"auto"`` shards exactly
+    when the model is on an ensemble comm.  ``n_replicas`` is 1 whenever
+    ``sharded`` is ``False``."""
     if k_sharded is True:
-        raise NotImplementedError(K_SHARDED_NOT_PORTED)
-    if k_sharded is False or k_sharded == "auto":
+        model._require_k_shard_axis()
+        return True, model.k_shard_replicas
+    if k_sharded is False:
         return False, 1
-    raise ValueError(
-        f"k_sharded must be True, False or 'auto', got {k_sharded!r}")
+    if k_sharded != "auto":
+        raise ValueError(
+            f"k_sharded must be True, False or 'auto', got {k_sharded!r}")
+    if model.k_shard_axis is None:
+        return False, 1
+    return True, model.k_shard_replicas
 
 
 def k_shards_bucket(bucket: int, k_sharded: bool, n_replicas: int) -> bool:
-    """Whether a ``(K, ndim)`` batch runs the K-partitioned program:
-    sharding on and the replica count dividing K."""
+    """The dispatch rule: a ``(K, ndim)`` batch runs the K-partitioned
+    program exactly when sharding is on and the replica count divides K
+    (an indivisible rung, the K = 1 singleton, runs replicated)."""
     r = max(int(n_replicas), 1)
     return bool(k_sharded) and int(bucket) % r == 0
 
 
 def resolve_k_sharded(model, k: int, ndim: int, nsteps: int,
-                      k_sharded="auto") -> bool:
-    """Resolve ``k_sharded`` for a K-member fit.  The JAX package shards
-    under ``"auto"`` when the model has a replica axis and the replicated
-    layout's estimate exceeds a memory budget; the port has no replica
-    axis, so ``"auto"`` and ``False`` give ``False`` and ``True`` raises
-    (``k``, ``ndim`` and ``nsteps`` keep the JAX package's signature)."""
-    return resolve_k_shard_topology(model, k_sharded)[0]
+                      k_sharded="auto", k_budget_bytes=None) -> bool:
+    """Resolve ``k_sharded`` for a K-member batched fit, the JAX package's
+    rule: ``"auto"`` shards when the model has a replica axis, K is at
+    least the replica count, and the replicated layout's per-device
+    estimate (:func:`ensemble_memory_model`, with the port's graph term
+    :func:`row_graph_bytes`) exceeds ``k_budget_bytes`` (default
+    :data:`DEFAULT_K_BUDGET_BYTES`, env ``MGT_K_BUDGET_BYTES``).
+    ``True`` demands the replica axis, ``False`` pins replicated."""
+    sharded, r = resolve_k_shard_topology(model, k_sharded)
+    if not sharded or k_sharded != "auto":
+        return sharded
+    if int(k) < r:
+        return False
+    replicated = ensemble_memory_model(int(k), int(ndim), int(nsteps),
+                                       graph_bytes=row_graph_bytes(model))
+    return replicated > _k_budget_bytes(k_budget_bytes)
 
 
 def pad_k_to_replicas(inits, n_replicas: int):
@@ -127,17 +192,19 @@ def batched_fit_wrapper(model, with_key: bool, k_sharded: bool = False):
     """``wrapper(params_batch, key, aux_leaves) -> (losses, grads)`` over
     the model's :meth:`batched_loss_and_grad_fn`, in the argument order
     of the JAX package's Adam scan.  Cached on the model, so ensembles
-    and the serving layer's bucket dispatches share one wrapper."""
-    cache = model.__dict__.setdefault("_program_cache", {})
-    key = ("multistart_adam_wrapper", bool(with_key), bool(k_sharded))
-    if key not in cache:
+    and the serving layer's bucket dispatches share one wrapper;
+    ``k_sharded=True`` wraps the K-partitioned program, a sibling
+    entry."""
+    def build():
         program = model.batched_loss_and_grad_fn(with_key,
                                                  k_sharded=k_sharded)
 
         def wrapper(p, key, aux_leaves):
             return program(p, aux_leaves, key)
-        cache[key] = wrapper
-    return cache[key]
+        return wrapper
+    return cached_program(
+        model, ("multistart_adam_wrapper", bool(with_key), bool(k_sharded)),
+        build)
 
 
 def _numpy(x):
@@ -171,7 +238,8 @@ class EnsembleResult:
     inits : tensor, shape (n_starts, ndim)
         The starts.
     k_sharded : bool
-        Whether the fit ran with K sharded (always ``False`` in the port).
+        Whether the fit ran with K sharded over the replica axis (what
+        the ``k_sharded="auto"`` rule resolved to).
     """
 
     best_params: torch.Tensor
@@ -214,11 +282,12 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
                         const_randkey: bool = False, bound_fits: bool = True,
                         donate_carry=None, telemetry=None,
                         log_every: int = 0, live=None, alerts=None,
-                        k_sharded="auto") -> EnsembleResult:
+                        k_sharded="auto",
+                        k_budget_bytes=None) -> EnsembleResult:
     """K independent Adam fits as one batched fit (parity:
     ``inference/ensemble.py:296-434`` of the JAX package).
 
-    One :func:`~multigrad_tpu_torch.optim.adam._run_adam_loop` call on the
+    One :func:`~multigrad_tpu_torch.optim.adam.run_adam_scan` call on the
     ``(K, ndim)`` starts through :func:`batched_fit_wrapper` (each step
     one batched loss and gradient), then one batched evaluation of the
     finals; the best start is the ``argmin`` over finite losses.
@@ -244,8 +313,15 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
         the ensemble's own closing ``fit_summary`` (``final_loss`` of the
         winning start, ``n_starts``, ``best_start``, ``k_sharded``).
     k_sharded : "auto" or bool
-        ``"auto"`` and ``False`` run K replicated; ``True`` (K over a
-        replica axis) is not ported yet.
+        Partition the K axis over the replica axis of an
+        :func:`~multigrad_tpu_torch.parallel.ensemble_comm` (K/R rows of
+        parameters, moments, trajectory and graphs a process; the
+        trajectory and the finals' losses gathered at the end).  K is
+        padded to a multiple of R with copies of row 0 and sliced back.
+        ``"auto"`` follows :func:`resolve_k_sharded`; ``True`` on a flat
+        comm raises ``ValueError``.
+    k_budget_bytes : int, optional
+        The ``"auto"`` rule's per-device budget.
     """
     del donate_carry
     from ..parallel.distributed import process_index
@@ -265,32 +341,39 @@ def run_multistart_adam(model, param_bounds=None, n_starts: int = 8,
     if const_randkey and not with_key:
         raise ValueError("Must pass randkey if const_randkey")
     sharded = resolve_k_sharded(model, inits.shape[0], inits.shape[1],
-                                nsteps, k_sharded=k_sharded)
+                                nsteps, k_sharded=k_sharded,
+                                k_budget_bytes=k_budget_bytes)
+    n_real, ks = int(inits.shape[0]), None
+    if sharded:
+        inits, n_real = pad_k_to_replicas(inits, model.k_shard_replicas)
+        ks = model.k_sharding(inits.dim())
     wrapper = batched_fit_wrapper(model, with_key, k_sharded=sharded)
     leaves = model.aux_leaves()
-
-    def loss_and_grad(p, randkey=None):
-        return wrapper(p, randkey, leaves)
 
     telemetry, log_every, owned = wire_monitoring(
         telemetry, log_every, live, alerts)
     try:
-        traj = _adam._run_adam_loop(
-            loss_and_grad, inits, nsteps=nsteps,
+        traj = _adam.run_adam_scan(
+            wrapper, inits, nsteps=nsteps,
             param_bounds=param_bounds if bound_fits else None,
             learning_rate=learning_rate, randkey=randkey,
             const_randkey=const_randkey, progress=False,
-            monitor=_adam._scan_monitor(telemetry, log_every, None, nsteps,
-                                        None))
+            fn_args=(leaves,), telemetry=telemetry, log_every=log_every,
+            carry_sharding=ks)
         finals = traj[-1]
         key = _adam.init_randkey(randkey) if with_key else None
-        losses, _ = wrapper(finals, key, leaves)
+        if ks is None:
+            losses, _ = wrapper(finals, key, leaves)
+        else:
+            losses = ks.gather(wrapper(ks.local(finals), key, leaves)[0])
+        finals, losses, inits = finals[:n_real], losses[:n_real], \
+            inits[:n_real]
         best = int(torch.argmin(torch.where(torch.isfinite(losses), losses,
                                             torch.inf)))
         best_loss = float(losses[best])
         if telemetry is not None and process_index() == 0:
             telemetry.log("fit_summary", steps=int(nsteps),
-                          n_starts=int(inits.shape[0]), best_start=best,
+                          n_starts=n_real, best_start=best,
                           final_loss=best_loss, k_sharded=sharded)
     finally:
         if owned is not None:
@@ -304,17 +387,16 @@ def _lbfgs_polish_objective(model, with_key: bool):
     """``loss_and_grad(p, randkey=None) -> (loss, grad)`` for the L-BFGS
     polish: one row of the model's cached :func:`batched_fit_wrapper`
     (the call the Adam ensemble makes), itself cached on the model."""
-    cache = model.__dict__.setdefault("_program_cache", {})
-    key = ("multistart_lbfgs_objective", bool(with_key))
-    if key not in cache:
+    def build():
         wrapper = batched_fit_wrapper(model, with_key)
         leaves = model.aux_leaves()
 
         def loss_and_grad(p, randkey=None):
             losses, grads = wrapper(p[None], randkey, leaves)
             return losses[0], grads[0]
-        cache[key] = loss_and_grad
-    return cache[key]
+        return loss_and_grad
+    return cached_program(
+        model, ("multistart_lbfgs_objective", bool(with_key)), build)
 
 
 def run_multistart_lbfgs(model, param_bounds=None, n_starts: int = 8,

@@ -21,6 +21,15 @@ D)`` tensor, and nothing reaches the host before the end.  Randomness
 comes from a ``torch.Generator`` on that device, seeded with
 ``randkey``, so runs match the JAX package in distribution only.
 
+Sharded chains (``k_sharded=True``, a model on an
+:func:`~multigrad_tpu_torch.parallel.ensemble_comm`): the C chains are
+partitioned C/R a process over the replica axis.  Every process draws the
+full ``(C, ndim)`` momenta and ``(C,)`` uniforms from the one generator
+and takes its rows, so each chain follows the replicated sampler's stream
+bit for bit.  The replica comm carries the tap's records (mean acceptance
+averaged, divergences summed, step sizes gathered, on record draws only)
+and the gather of the result at the end, nothing else.
+
 Split R-hat and the bulk effective sample size run on the host, in
 numpy, on the returned draws (:func:`split_rhat`,
 :func:`effective_sample_size`).
@@ -32,7 +41,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.model import K_SHARDED_NOT_PORTED
 from ..optim.adam import init_randkey
 from .ensemble import float32_on
 
@@ -114,7 +122,7 @@ def _f32(x) -> float:
 
 def _sample(potential, q0, noise, num_warmup, num_samples, num_leapfrog,
             step_size0, inv_mass, target_accept, jitter, tap=None,
-            sentinel=None):
+            sentinel=None, ks=None):
     """The sampler (parity: ``_build_hmc_local`` of the JAX package's
     ``hmc.py``) on ``(C, D)`` starts ``q0``, every tensor on ``q0``'s
     device.
@@ -135,6 +143,11 @@ def _sample(potential, q0, noise, num_warmup, num_samples, num_leapfrog,
     only: an infinite one is a divergence the Metropolis test rejects),
     at warmup draw ``t`` and sampling draw ``t + 1`` as in the JAX
     package.  Neither reads a value inside a draw.
+
+    ``ks`` (a :class:`~multigrad_tpu_torch.parallel.KSharding`): ``q0``
+    holds this process's chains; a record draw's acceptance is averaged,
+    its divergences summed and its step sizes gathered over the replica
+    comm, so the records cover the whole ensemble.
     """
     n_chains, ndim = q0.shape
     inv_mass = inv_mass.reshape(1, ndim)
@@ -211,9 +224,14 @@ def _sample(potential, q0, noise, num_warmup, num_samples, num_leapfrog,
             win_accept = win_accept + accepts[:, t].mean()
             div_total = div_total + divergent[:, t].sum()
             if (t + 1) % tap.log_every == 0:
+                accept, divergences, eps = \
+                    win_accept / tap.log_every, div_total, eps_sample
+                if ks is not None:
+                    accept = ks.replica.pmean(accept)
+                    divergences = ks.replica.psum(divergences)
+                    eps = ks.gather(eps)
                 tap.maybe_emit(t + 1, dict(
-                    accept=win_accept / tap.log_every,
-                    divergences=div_total, step_size=eps_sample))
+                    accept=accept, divergences=divergences, step_size=eps))
                 win_accept = torch.zeros_like(win_accept)
             else:
                 tap.drain()
@@ -276,11 +294,14 @@ def run_hmc(model, init, num_samples: int = 1000, num_warmup: int = 500,
         at its end.
     live, alerts
         The live endpoint and the alert rules, joined to the stream.
-    k_sharded
-        Not ported yet; ``True`` raises.
+    k_sharded : bool
+        Partition the chains over the replica axis of the model's
+        :func:`~multigrad_tpu_torch.parallel.ensemble_comm` (``ValueError``
+        without one, and when R does not divide the chain count): C/R
+        chains a process, each bit-equal to the replicated sampler's
+        chain, the result gathered at the end (see the module
+        docstring).
     """
-    if k_sharded:
-        raise NotImplementedError(K_SHARDED_NOT_PORTED)
     from ..parallel.distributed import process_index
     from ..telemetry.live import wire_monitoring
     from ..telemetry.taps import make_tap
@@ -295,6 +316,15 @@ def run_hmc(model, init, num_samples: int = 1000, num_warmup: int = 500,
         raise ValueError(f"init must be (ndim,) or (num_chains, ndim), got "
                          f"shape {tuple(init.shape)}")
     n_chains, ndim = init.shape
+    ks = None
+    if k_sharded:
+        model._require_k_shard_axis()
+        if n_chains % model.k_shard_replicas:
+            raise ValueError(
+                "k_sharded HMC needs the chain count divisible by the "
+                f"replica count: {n_chains} chains on "
+                f"{model.k_shard_replicas} replica slices")
+        ks = model.k_sharding(2)
     inv_mass = torch.ones(ndim, device=device) if inv_mass is None \
         else float32_on(inv_mass, device)
     if tuple(inv_mass.shape) != (ndim,):
@@ -308,16 +338,21 @@ def run_hmc(model, init, num_samples: int = 1000, num_warmup: int = 500,
             "back to ones there")
     with_key = model_randkey is not None
     model_key = init_randkey(model_randkey) if with_key else None
-    program = model.batched_loss_and_grad_fn(with_key)
+    program = model.batched_loss_and_grad_fn(with_key,
+                                             k_sharded=ks is not None)
     leaves = model.aux_leaves()
+    rows = (lambda x: x) if ks is None else ks.local
 
     def potential(q):
         return program(q, leaves, model_key)
 
     def noise(_t):
-        return (torch.randn((n_chains, ndim), generator=gen, device=device),
-                torch.rand(n_chains, generator=gen, device=device),
-                torch.rand(n_chains, generator=gen, device=device))
+        # The full (C, ...) draws on every process, this process's rows
+        # taken: each chain's stream is the replicated sampler's.
+        return (rows(torch.randn((n_chains, ndim), generator=gen,
+                                 device=device)),
+                rows(torch.rand(n_chains, generator=gen, device=device)),
+                rows(torch.rand(n_chains, generator=gen, device=device)))
 
     telemetry, log_every, owned = wire_monitoring(
         telemetry, log_every, live, alerts)
@@ -334,11 +369,13 @@ def run_hmc(model, init, num_samples: int = 1000, num_warmup: int = 500,
             sentinel.arm()
             if tap is not None:
                 tap.ride(sentinel)
-        out = _sample(potential, init, noise, int(num_warmup),
+        out = _sample(potential, rows(init), noise, int(num_warmup),
                       int(num_samples), int(num_leapfrog),
                       torch.tensor(float(step_size), device=device),
                       inv_mass, float(target_accept), float(jitter),
-                      tap=tap, sentinel=sentinel)
+                      tap=tap, sentinel=sentinel, ks=ks)
+        if ks is not None:
+            out = gather_chains(out, ks)
         result = result_from(out)
         if tap is not None:
             tap.drain(block=True)
@@ -359,6 +396,23 @@ def run_hmc(model, init, num_samples: int = 1000, num_warmup: int = 500,
     if flight is not None:
         flight.raise_if_fatal()
     return result
+
+
+def gather_chains(out: dict, ks) -> dict:
+    """A sharded sampler run's per-chain tensors, every replica slice's
+    chains in order, through ONE all-gather over the replica comm (each
+    process's tensors flattened and joined, then split back)."""
+    names = list(out)
+    local = [out[k] for k in names]
+    rows = local[0].shape[0]
+    flat = torch.cat([t.reshape(rows, -1).to(torch.float32)
+                      for t in local], dim=1)
+    full = ks.gather(flat)
+    widths = [t[0].numel() for t in local]
+    return {name: part.reshape((full.shape[0],) + tuple(t.shape[1:]))
+            .to(t.dtype)
+            for name, t, part in zip(names, local,
+                                     full.split(widths, dim=1))}
 
 
 def result_from(out) -> HMCResult:

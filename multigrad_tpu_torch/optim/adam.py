@@ -433,13 +433,6 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
     return traj
 
 
-#: What ``carry_sharding`` raises: the port has no replica axis yet.
-CARRY_SHARDING_NOT_PORTED = (
-    "carry_sharding (the Adam carry of a (K, ndim) fit partitioned over "
-    "a replica axis) is not ported yet: ROADMAP.md Queue 1 item 6, "
-    "sharded K")
-
-
 def run_adam_unbounded(logloss_and_grad_fn, params, data, nsteps=100,
                        learning_rate=0.01, randkey=None, progress=True,
                        device=None):
@@ -517,12 +510,20 @@ def run_adam_scan(loss_and_grad: Callable, params, nsteps: int = 100,
     ``diagnostics`` adds ``loss_ema`` and ``loss_ema_slope``; with
     ``fn_diag`` the callable returns ``(loss, grad, diagnostics dict)``
     and the dict's scalars join each record.  See :class:`_AdamMonitor`:
-    no step waits for the card.  ``carry_sharding`` (sharded K) is not
-    ported yet and raises.
+    no step waits for the card.
+
+    ``carry_sharding`` (a model's :meth:`~multigrad_tpu_torch.core.model
+    .OnePointModel.k_sharding`) partitions a ``(K, ndim)`` fit over an
+    ensemble comm's replica axis, the ZeRO layout: ``params`` is the
+    full batch, and each process keeps only its K/R rows of the
+    parameters, both moments and the trajectory through the steps,
+    ``loss_and_grad`` being the K-partitioned program of those rows (see
+    ``batched_loss_and_grad_fn(k_sharded=True)``).  No collective crosses
+    the replica comm inside the loop; the trajectory is gathered once at
+    the end, so every process returns the whole ``(nsteps + 1, K,
+    ndim)``.  Monitoring records then cover this process's rows.
     """
     del donate_carry
-    if carry_sharding is not None:
-        raise NotImplementedError(CARRY_SHARDING_NOT_PORTED)
     from ..telemetry.live import wire_monitoring
 
     fn_args = tuple(fn_args)
@@ -532,6 +533,15 @@ def run_adam_scan(loss_and_grad: Callable, params, nsteps: int = 100,
         raise ValueError(
             "checkpoint_dir requires 1-D params (the restart state "
             f"layout is per-fit); got shape {np.shape(params)}")
+    if carry_sharding is not None:
+        if ndim != 2:
+            raise ValueError(
+                "carry_sharding partitions a (K, ndim) batch; got shape "
+                f"{tuple(np.shape(params))}")
+        if not isinstance(params, torch.Tensor):
+            params = torch.as_tensor(np.asarray(params, np.float32),
+                                     device=resolve_device(device))
+        params = carry_sharding.local(params)
 
     def fn(p, randkey=0):
         return loss_and_grad(p, randkey, *fn_args)
@@ -539,7 +549,7 @@ def run_adam_scan(loss_and_grad: Callable, params, nsteps: int = 100,
     telemetry, log_every, owned = wire_monitoring(
         telemetry, log_every, live, alerts)
     try:
-        return _run_adam_loop(
+        traj = _run_adam_loop(
             fn, params, nsteps=nsteps, param_bounds=param_bounds,
             learning_rate=learning_rate, randkey=randkey,
             const_randkey=const_randkey, progress=progress, device=device,
@@ -550,6 +560,9 @@ def run_adam_scan(loss_and_grad: Callable, params, nsteps: int = 100,
     finally:
         if owned is not None:
             owned.close()
+    if carry_sharding is not None:
+        traj = carry_sharding.gather(traj, axis=1)
+    return traj
 
 
 def _scan_monitor(telemetry, log_every, flight, nsteps, checkpoint_every,

@@ -19,9 +19,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from .mesh import MeshComm
+from .mesh import MeshComm, on_backend_device
 from ..ops.kernel_costs import counting_mode
-from ..telemetry.comm import record_collective
+from ..telemetry.comm import record_axis_collective
 from ..utils.util import pad_to_multiple
 
 
@@ -103,10 +103,13 @@ def all_gather(value, comm: Optional[MeshComm] = None, axis: int = 0):
     if comm is None or comm.size == 1:
         return tensor
     tensor = _on_comm_device(tensor, comm).contiguous()
-    record_collective("all_gather", tensor)
+    record_axis_collective(comm.axis, "all_gather", tensor)
     if tensor.is_meta:              # the static cost model: counted only
         counting_mode("all_gather")
         return torch.cat([torch.empty_like(tensor)] * comm.size, dim=axis)
+    home = tensor.device
+    staged = on_backend_device(tensor, comm.group)
+    moved, tensor = staged is not tensor, staged
     if dist.get_backend(comm.group) == "nccl":
         stacked = torch.empty((comm.size,) + tuple(tensor.shape),
                               dtype=tensor.dtype, device=tensor.device)
@@ -115,7 +118,8 @@ def all_gather(value, comm: Optional[MeshComm] = None, axis: int = 0):
     else:
         parts = [torch.empty_like(tensor) for _ in range(comm.size)]
         dist.all_gather(parts, tensor, group=comm.group)
-    return torch.cat([p.reshape(tensor.shape) for p in parts], dim=axis)
+    out = torch.cat([p.reshape(tensor.shape) for p in parts], dim=axis)
+    return out.to(home) if moved else out
 
 
 #: Largest number of dimensions whose shapes ``scatter_from_local`` checks.
@@ -169,7 +173,7 @@ def _ring_pass(tensor, comm: MeshComm, shift: int):
         return dist.get_global_rank(comm.group, r)
 
     out = torch.empty_like(tensor)
-    record_collective("ppermute", tensor)
+    record_axis_collective(comm.axis, "ppermute", tensor)
     if tensor.is_meta:              # the static cost model: counted only
         counting_mode("ring_shift")
         return out

@@ -13,8 +13,8 @@ Each process brings the process group up with
 launcher's environment or explicit arguments: NCCL for CUDA tensors, the
 process bound to its card, gloo for CPU tensors.
 
-Sub-communicators (:func:`split_subcomms`, :func:`split_subcomms_by_node`)
-are ``torch.distributed.new_group`` groups.  Creating a group is
+Sub-communicators (:func:`split_subcomms`, :func:`split_subcomms_by_node`,
+:func:`ensemble_comm`) are ``torch.distributed.new_group`` groups.  Creating a group is
 collective over the whole world: every process creates every group, in
 the same order, and is a member of its own groups only.  A process may
 hold a :class:`MeshComm` of a group it is not in (``is_member`` is then
@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.kernel_costs import active_counting_mode, counting_mode
-from ..telemetry.comm import record_collective
+from ..telemetry.comm import record_axis_collective
 
 
 class MeshComm:
@@ -47,13 +47,46 @@ class MeshComm:
     name : str
         The comm's name (``"WORLD"``, ``"0"``, ``"1"``, ... for the
         groups of a split, as in the JAX package).
+    axes : tuple of str
+        The names of the axes the comm reduces over: ``(data_axis,)`` for
+        an :func:`ensemble_comm`, its replica comm ``(replica_axis,)``.
+        Empty for every other comm, whose collectives name no axis (their
+        bytes are unattributed in the cost model).
+    replica : MeshComm, optional
+        An ensemble comm's replica comm: this process's group across the
+        replica slices, the axis the K batch axis shards over (see
+        :attr:`free_axes` and :class:`KSharding`).
     """
 
     def __init__(self, group: Optional[dist.ProcessGroup] = None,
-                 ranks: Optional[Sequence[int]] = None, name: str = "WORLD"):
+                 ranks: Optional[Sequence[int]] = None, name: str = "WORLD",
+                 axes: Sequence[str] = (),
+                 replica: Optional["MeshComm"] = None):
         self.group = group
         self._ranks = None if ranks is None else tuple(int(r) for r in ranks)
         self.name = name
+        self._axes = tuple(axes)
+        self.replica = replica
+
+    @property
+    def axes(self) -> tuple:
+        """The names of the axes the comm reduces over (empty for a comm
+        that names none; the JAX package's flat comm names its one
+        axis)."""
+        return self._axes
+
+    @property
+    def axis(self) -> Optional[str]:
+        """The axis the comm's collectives are recorded under (its last
+        reduced axis; ``None`` for a comm that names none)."""
+        return self.axes[-1] if self.axes else None
+
+    @property
+    def free_axes(self) -> tuple:
+        """The axes the comm does NOT reduce over: an ensemble comm's
+        replica axis, else empty (the JAX property over a 2-level
+        mesh)."""
+        return self.replica.axes if self.replica is not None else ()
 
     @property
     def distributed(self) -> bool:
@@ -110,12 +143,13 @@ class MeshComm:
             return value
         self._require_member(op)
         out = torch.as_tensor(value).detach().clone()
-        record_collective(op, out)
+        record_axis_collective(self.axis, op, out)
         if out.is_meta:             # the static cost model: counted only
             counting_mode(op)
             return out
-        dist.all_reduce(out, op=reduce_op, group=self.group)
-        return out
+        staged = on_backend_device(out, self.group)
+        dist.all_reduce(staged, op=reduce_op, group=self.group)
+        return out if staged is out else staged.to(out.device)
 
     def psum(self, value: torch.Tensor) -> torch.Tensor:
         """Sum of ``value`` over the group, on every process (a new
@@ -159,7 +193,7 @@ class MeshComm:
         if self.size > 1:
             return all_gather(value, self, axis)
         out = value.detach().clone()
-        record_collective("all_gather", out)
+        record_axis_collective(self.axis, "all_gather", out)
         if out.is_meta:             # the static cost model: counted only
             counting_mode("all_gather")
         return out
@@ -175,6 +209,66 @@ class MeshComm:
         elif self.distributed and dist.get_backend(self.group) == "nccl":
             device = torch.device("cuda", torch.cuda.current_device())
         return torch.tensor(self.rank, dtype=torch.int32, device=device)
+
+
+def on_backend_device(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` where the group's backend reduces it: a card tensor
+    under gloo goes through host memory (gloo's own path for card tensors
+    is not used); anything else stays where it is."""
+    if tensor.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        return tensor.cpu()
+    return tensor
+
+
+class KSharding:
+    """The port's ``k_sharding``: the leading (ensemble, chain or bucket)
+    axis of a ``(K, ...)`` batch partitioned over an :func:`ensemble_comm`'s
+    replica axis, replica slice ``r`` holding rows ``[r·K/R, (r+1)·K/R)``
+    (the layout of the JAX package's ``NamedSharding``).
+
+    Each process keeps only its rows (:meth:`local`), and a result comes
+    back whole through one all-gather over the replica comm
+    (:meth:`gather`, in replica order).
+    """
+
+    def __init__(self, replica: MeshComm):
+        self.replica = replica
+
+    @property
+    def axis(self) -> Optional[str]:
+        """The replica axis' name."""
+        return self.replica.axis
+
+    @property
+    def n_replicas(self) -> int:
+        return self.replica.size
+
+    @property
+    def index(self) -> int:
+        """This process's replica slice."""
+        return self.replica.rank
+
+    def local(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This process's rows of ``x`` along ``axis`` (a view); ``K`` must
+        be a multiple of the replica count."""
+        k, r = int(x.shape[axis]), self.n_replicas
+        if k % r:
+            raise ValueError(
+                f"a K-sharded batch needs K divisible by the replica "
+                f"count: K = {k} rows on {r} replica slices (pad with "
+                "inference.pad_k_to_replicas)")
+        per = k // r
+        return x.narrow(axis, self.index * per, per)
+
+    def gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Every replica slice's ``x``, concatenated along ``axis`` in
+        replica order, on every process (one all-gather over the replica
+        comm, recorded under its axis)."""
+        return self.replica.all_gather(x, axis=axis)
+
+    def __repr__(self) -> str:
+        return (f"KSharding(axis={self.axis!r}, n_replicas="
+                f"{self.n_replicas}, index={self.index})")
 
 
 def global_comm() -> MeshComm:
@@ -265,6 +359,60 @@ def split_subcomms(num_groups: Optional[int] = None,
         return (MeshComm(name=comm.name),), num_groups, 0
     subcomms, my_group = _new_groups(comm, labels, num_groups)
     return subcomms, num_groups, my_group
+
+
+def ensemble_comm(n_replicas: int, data_axis: str = "data",
+                  replica_axis: str = "replica",
+                  name: str = "WORLD") -> MeshComm:
+    """The communicator of sharded-K ensembles: the world's P processes as
+    an ``(R, D)`` grid, ``R = n_replicas`` replica slices of ``D = P / R``
+    data shards, the replica axis outermost as in the JAX package (global
+    rank ``r·D + d``).
+
+    The comm returned reduces over this process's data group (its replica
+    slice's D ranks), so a model on it behaves as on a one-axis comm:
+    sumstats and gradients all-reduce over ``data_axis``, ``scatter_nd``
+    shards a catalog over the slice, each slice holding a whole copy.  It
+    also carries its replica comm (``.replica``: this process's rank in
+    every slice, the free axis :attr:`MeshComm.free_axes`), which the
+    K-sharded entry points partition the ensemble axis over:
+    ``batched_loss_and_grad_fn(k_sharded=True)``,
+    ``run_adam_scan(carry_sharding=...)``, ``run_multistart_adam(
+    k_sharded=...)``, ``run_hmc(k_sharded=True)`` and ``FitScheduler(
+    k_sharded=...)`` each hold K/R rows a process (see
+    :class:`KSharding`).
+
+    The trade, as in the JAX package: a slice holds a whole catalog over
+    D shards (×R the catalog a process of a flat comm of P holds), against
+    K/R rows of optimizer state and of the port's autograd graphs
+    (:func:`~multigrad_tpu_torch.inference.ensemble_memory_model`).
+
+    Collective over the world: every process calls ``new_group`` for the
+    R data groups, then the D replica groups, in order.  ``n_replicas``
+    must divide the process count (``ValueError``).  Without a process
+    group the one process is a 1×1 grid.
+    """
+    n_replicas = int(n_replicas)
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    world = MeshComm(name=name)
+    size = len(world.ranks)
+    if size % n_replicas:
+        raise ValueError(
+            f"n_replicas={n_replicas} must divide the process count "
+            f"({size})")
+    if not world.distributed:
+        return MeshComm(name=name, axes=(data_axis,), replica=MeshComm(
+            name=f"{name}.{replica_axis}", axes=(replica_axis,)))
+    width = size // n_replicas
+    ranks = np.arange(size)
+    data, my_data = _new_groups(world, ranks // width, n_replicas)
+    replicas, my_replica = _new_groups(world, ranks % width, width)
+    replica = replicas[my_replica]
+    return MeshComm(
+        data[my_data].group, data[my_data].ranks, name, axes=(data_axis,),
+        replica=MeshComm(replica.group, replica.ranks,
+                         f"{name}.{replica_axis}", axes=(replica_axis,)))
 
 
 def split_subcomms_by_node(comm: Optional[MeshComm] = None):

@@ -126,8 +126,12 @@ def warmup_buckets(model, configs, buckets=DEFAULT_BUCKETS,
     Returns one ``{"nsteps", "learning_rate", "bucket", "k_sharded",
     "compile_s"}`` entry per pair, ``compile_s`` the wall seconds of
     that pair's run (the card's work included).  ``donate_carry`` is
-    accepted and has no effect (a host loop has no carry to donate);
-    ``k_sharded=True`` (sharded K) raises, as the scheduler does.
+    accepted and has no effect (a host loop has no carry to donate).
+    ``k_sharded`` resolves as the scheduler's does: on an
+    :func:`~multigrad_tpu_torch.parallel.ensemble_comm` a bucket the
+    replica count divides warms the K-partitioned program and carry (a
+    collective run: every process of the comm makes the call), and
+    ``True`` raises ``ValueError`` without a replica axis.
     """
     from ..inference.ensemble import (batched_fit_wrapper,
                                       k_shards_bucket,
@@ -151,6 +155,7 @@ def warmup_buckets(model, configs, buckets=DEFAULT_BUCKETS,
         key = init_randkey(config.randkey) if config.with_key else 0
         for bucket in sorted(set(int(b) for b in buckets)):
             sharded = k_shards_bucket(bucket, k_sharded, n_replicas)
+            ks = model.k_sharding(2) if sharded else None
             wrapper = batched_fit_wrapper(model, config.with_key,
                                           k_sharded=sharded)
             loss_program = model.batched_loss_and_grad_fn(
@@ -164,8 +169,9 @@ def warmup_buckets(model, configs, buckets=DEFAULT_BUCKETS,
                     learning_rate=config.learning_rate,
                     randkey=config.randkey,
                     const_randkey=config.const_randkey, progress=False,
-                    fn_args=(dynamic,))
-                losses, _ = loss_program(traj[-1], dynamic, key)
+                    fn_args=(dynamic,), carry_sharding=ks)
+                finals = traj[-1] if ks is None else ks.local(traj[-1])
+                losses, _ = loss_program(finals, dynamic, key)
                 # One read back: the pair's time includes the card's
                 # work, and the run is complete before the next.
                 losses.cpu()

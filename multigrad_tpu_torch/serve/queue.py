@@ -73,7 +73,8 @@ class FitOOMError(FitFailed):
     RESOURCE_EXHAUSTED / out-of-memory dispatch error, attaches the
     sharded-K memory-model estimate (``estimated_bytes``, from
     :func:`~multigrad_tpu_torch.inference.ensemble_memory_model` —
-    per-device optimizer + trajectory state for this bucket), and the
+    per-device optimizer + trajectory state and the rows' autograd
+    graphs for this bucket), and the
     message spells out the remedy: shard the K axis (build the model
     on :func:`~multigrad_tpu_torch.parallel.ensemble_comm` and pass
     ``FitScheduler(k_sharded=True)``), or cap the ladder with
@@ -598,6 +599,40 @@ class FitQueue:
             self._settle([(r, "expired", FitDeadlineExceeded(
                 f"request {r.id} deadline passed while queued"))
                 for r in expired])
+
+    def take_ids(self, ids, timeout: Optional[float] = None) -> list:
+        """Pop the pending requests with ids ``ids``, in that order,
+        waiting up to ``timeout`` (``None``: as long as it takes) for
+        those not submitted yet: a rank's side of a dispatch that world
+        rank 0 decided (see :class:`~multigrad_tpu_torch.serve
+        .FitScheduler`).  ``RuntimeError`` when the queue is closed and
+        one never came, ``TimeoutError`` when the wait runs out."""
+        ids = [int(i) for i in ids]
+        if not ids:
+            return []
+        deadline = None if timeout is None else time.time() + timeout
+        with self._not_empty:
+            while True:
+                found = {r.id: r for r in self._pending}
+                missing = [i for i in ids if i not in found]
+                if not missing:
+                    break
+                if self._closed:
+                    raise RuntimeError(
+                        f"requests {missing} were never submitted to "
+                        "this closed queue")
+                remaining = None if deadline is None \
+                    else deadline - time.time()
+                if remaining is not None and remaining <= 0:
+                    raise TimeoutError(
+                        f"requests {missing} not submitted within "
+                        f"{timeout} s")
+                self._not_empty.wait(remaining)
+            taken = set(ids)
+            self._pending = collections.deque(
+                r for r in self._pending if r.id not in taken)
+            self._not_full.notify_all()
+            return [found[i] for i in ids]
 
     def _wait_for_pending(self, timeout: Optional[float]) -> bool:
         deadline = None if timeout is None else time.time() + timeout

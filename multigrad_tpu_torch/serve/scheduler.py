@@ -41,6 +41,22 @@ fits/hour, per-outcome counters) land in the
 :class:`~multigrad_tpu_torch.telemetry.LiveServer` registry via ``live=``,
 and every served request closes with its own ``fit_summary``
 telemetry record via ``telemetry=``.
+
+Several processes (a model whose comm spans a process group of more than
+one process, e.g. on :func:`~multigrad_tpu_torch.parallel.ensemble_comm`):
+every process runs a scheduler over its shard, and every dispatch is a
+collective, so the processes must run the same dispatches in the same
+order.  World rank 0 decides them (which requests a dispatch takes, and
+so its bucket and config; which requests its queue dropped as expired,
+cancelled or shed) and broadcasts each decision on the host, over a gloo
+group of the scheduler's own, before the dispatch; the other ranks take
+exactly those requests from their queues, waiting for them to arrive.
+The SPMD contract, as for any comm'd model: every process builds its
+scheduler in the same order (the group is created collectively) and
+submits the same requests in the same order, their ids matching; a
+submission may arrive later on one rank than on another.  Admission
+(``max_pending``, QoS quotas) is decided on each rank, so keep the queue
+bound above a burst.
 """
 from __future__ import annotations
 
@@ -51,11 +67,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .compile_cache import DEFAULT_BUCKETS, warmup_buckets
 from .qos import QosPolicy, make_tag, request_tag
-from .queue import (FitCancelled, FitConfig, FitFailed, FitFuture,
-                    FitOOMError, FitQueue, FitRequest, FitResult)
+from .queue import (FitCancelled, FitConfig, FitDeadlineExceeded,
+                    FitFailed, FitFuture, FitOOMError, FitQueue,
+                    FitRequest, FitResult)
 from .robustness import nonfinite_rows, request_postmortem, \
     split_expired
 
@@ -69,6 +87,34 @@ __all__ = ["FitScheduler", "DEFAULT_BUCKETS"]
 #: would reclassify unrelated failures.
 _OOM_MARKERS = ("resource_exhausted", "out of memory",
                 "hbm_allocator", "allocation failure")
+
+
+def _spans_processes(model) -> bool:
+    """Whether the model's comm spans a process group of more than one
+    process (every member's, in a group): its dispatches are collective."""
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() < 2:
+        return False
+    return any(getattr(m, "comm", None) is not None
+               for m in getattr(model, "models", (model,)))
+
+
+class _Lockstep:
+    """World rank 0's dispatch decisions, broadcast to every rank over a
+    gloo group of the scheduler's own (``new_group``, collective: every
+    process builds its scheduler in the same order).  A decision is
+    ``{"live": [request ids], "dropped": [(id, kind), ...]}``; ``None``
+    stops the other ranks' dispatchers."""
+
+    def __init__(self):
+        self.group = dist.new_group(backend="gloo")
+        self.leader = dist.get_rank() == 0
+
+    def share(self, decision=None):
+        """Rank 0 sends ``decision``; every other rank receives it."""
+        box = [decision]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
 
 
 def _is_oom(exc: BaseException) -> bool:
@@ -144,16 +190,21 @@ class FitScheduler:
         beside the kernel-library directory; see
         :func:`multigrad_tpu_torch.tune.default_table_path`).
     k_sharded : {"auto", True, False}
-        Run bucket dispatches on the sharded-K path (the K axis over a
-        replica axis of the mesh).  The port has no replica axis yet
-        (ROADMAP.md Queue 1 item 6): ``"auto"`` and ``False`` run every
-        bucket replicated, and ``True`` raises.
+        Run bucket dispatches on the sharded-K path: on a model built on
+        :func:`~multigrad_tpu_torch.parallel.ensemble_comm`, a bucket the
+        replica count divides runs K/R rows a process (the K-partitioned
+        program and carry), its results gathered so that every process's
+        futures resolve with the whole rows; the K = 1 singleton, and any
+        other indivisible rung, runs replicated.  ``"auto"`` shards
+        exactly when the model is on an ensemble comm, ``True`` raises
+        ``ValueError`` without one, ``False`` runs replicated.
     k_budget_bytes : int, optional
         Per-device memory budget for bucket dispatch state.  When
         set, the bucket ladder is capped per (config, ndim) by the
-        ensemble memory model
-        (:func:`~multigrad_tpu_torch.inference.max_k_for_budget`) instead
-        of a hardcoded max: a dispatch group larger than the cap
+        ensemble memory model, the Adam carry and each row's autograd
+        graph (:func:`~multigrad_tpu_torch.inference.max_k_for_budget`
+        with :func:`~multigrad_tpu_torch.inference.row_graph_bytes`),
+        instead of a hardcoded max: a dispatch group larger than the cap
         splits across dispatches rather than risking a device OOM.
         An OOM that still happens fails its group with the typed
         :class:`~multigrad_tpu_torch.serve.queue.FitOOMError` carrying the
@@ -196,7 +247,9 @@ class FitScheduler:
         daemon thread, every bucket dispatch bracketed for the
         busy/idle duty cycle, ``multigrad_resource_*`` gauges in
         ``live=``, and a ``measured_vs_modeled`` memory-truth record
-        per dispatch comparing the measured device peak against the
+        per dispatch comparing the dispatch's measured device peak
+        (above what the card held when it began; the card's peak
+        statistic is reset at each dispatch's start) against the
         ensemble memory model.
     history : bool
         Keep a windowed history plane (default on): a
@@ -231,8 +284,13 @@ class FitScheduler:
         # exactly this — and never otherwise (the shared resolution
         # rule of every sharded-K consumer).
         from ..inference.ensemble import resolve_k_shard_topology
+        from ..inference.ensemble import row_graph_bytes
         self.k_sharded, self._k_replicas = \
             resolve_k_shard_topology(model, k_sharded)
+        self._graph_bytes = row_graph_bytes(model)
+        # Collective dispatches: world rank 0 decides each one.
+        self._lockstep = _Lockstep() if _spans_processes(model) else None
+        self._dropped: list = []
         self.k_budget_bytes = (int(k_budget_bytes)
                                if k_budget_bytes is not None else None)
         self._bucket_caps: dict = {}
@@ -489,7 +547,11 @@ class FitScheduler:
         class-aware shed (``kind="shed"``).  Called by the queue
         outside its lock, before the future resolves: the same
         root-before-resolve accounting as the dispatch-time
-        paths."""
+        paths.  Under a lockstep, rank 0 passes the request on to the
+        other ranks' next decision."""
+        if self._lockstep is not None and self._lockstep.leader:
+            with self._lock:
+                self._dropped.append((req.id, kind))
         self._trace_root(req, kind)
         self._count(kind)
         self._fits_counter(kind)
@@ -592,8 +654,12 @@ class FitScheduler:
     # dispatch side (scheduler thread)
     # ------------------------------------------------------------------ #
     def _loop(self):
+        lockstep = self._lockstep
         try:
-            self._loop_body()
+            if lockstep is not None and not lockstep.leader:
+                self._follow_body()
+            else:
+                self._loop_body()
         except BaseException as e:
             # The dispatcher thread itself is dying — an escape the
             # per-group handler below cannot catch (BaseException, or
@@ -604,6 +670,9 @@ class FitScheduler:
             # every failed future and in the postmortem bundle, and
             # an unhandled-thread-exception would only add noise.
             self._dispatcher_backstop(e)
+        finally:
+            if lockstep is not None and lockstep.leader:
+                lockstep.share(None)     # release the other ranks
 
     def _loop_body(self):
         while not self._abort.is_set():
@@ -619,11 +688,17 @@ class FitScheduler:
                     timeout=0.05)
                 for _ in cancelled:
                     self._count("cancelled")
+                if self._lockstep is not None and cancelled:
+                    with self._lock:
+                        self._dropped += [(r.id, "cancelled")
+                                          for r in cancelled]
                 if group:
                     # Tracked for the backstop: a BaseException out
                     # of _dispatch must still fail THIS group.
                     self._inflight_group = group
                     self._dispatch(group)
+                elif self._lockstep is not None:
+                    self._lead([], [])
                 self._inflight_group = None
                 self._inflight_dispatch = None
             except Exception as e:
@@ -640,6 +715,50 @@ class FitScheduler:
                 self._inflight_dispatch = None
             if not group and self._stop.is_set() and self.queue.empty():
                 break
+
+    def _lead(self, live, dropped):
+        """Rank 0: broadcast this round's decision, ``live`` the requests
+        it dispatches next, ``dropped`` the ``(id, kind)`` of those it
+        settled otherwise, with those its queue settled or purged since
+        the last round."""
+        with self._lock:
+            dropped, self._dropped = self._dropped + dropped, []
+        self._lockstep.share({"live": [r.id for r in live],
+                              "dropped": dropped})
+
+    def _follow_body(self):
+        """A rank other than 0: run rank 0's decisions, in order, until
+        it stops."""
+        while True:
+            decision = self._lockstep.share()
+            if decision is None:
+                return
+            kinds = dict(decision["dropped"])
+            for req in self.queue.take_ids(list(kinds)):
+                kind = kinds[req.id]
+                if kind == "cancelled":
+                    self._trace_root(req, kind)
+                    self._count(kind)
+                else:
+                    self._queue_settled(req, kind)
+                error = FitDeadlineExceeded if kind == "expired" \
+                    else FitCancelled
+                req.future._set_exception(error(
+                    f"request {req.id} {kind} on world rank 0"))
+            if not decision["live"]:
+                continue
+            group = self.queue.take_ids(decision["live"])
+            self._inflight_group = group
+            try:
+                for req in group:
+                    # Run even a request cancelled here: its row is
+                    # part of the collective dispatch.
+                    req.future._set_running()
+                self._dispatch_live(group, time.time())
+            except Exception as e:
+                self._fail_group(group, e, "dispatch_failed")
+            self._inflight_group = None
+            self._inflight_dispatch = None
 
     def _fail_group(self, requests, exc: BaseException, reason: str,
                     bundle: Optional[str] = None):
@@ -682,7 +801,8 @@ class FitScheduler:
                                           self._k_replicas)
             n_replicas = self._k_replicas if sharded else 1
             est = ensemble_memory_model(bucket, ndim, nsteps,
-                                        n_replicas=n_replicas)
+                                        n_replicas=n_replicas,
+                                        graph_bytes=self._graph_bytes)
             layout = (f"sharded over {n_replicas} replica slices"
                       if sharded else "replicated")
             if sharded:
@@ -700,14 +820,14 @@ class FitScheduler:
                     "with k_budget_bytes")
             else:
                 remedy = (
-                    "cap the bucket ladder with k_budget_bytes "
-                    "(sharded K, which spreads a bucket's rows over "
-                    "a replica axis, is not ported yet: ROADMAP.md "
-                    "Queue 1 item 6)")
+                    "shard the K axis — build the model on "
+                    "parallel.ensemble_comm(n_replicas=R) and pass "
+                    "FitScheduler(k_sharded=True) — or cap the "
+                    "bucket ladder with k_budget_bytes")
             oom_msg = (
                 f"bucket dispatch ran out of device memory "
                 f"(K={bucket}, nsteps={nsteps}, {layout}: estimated "
-                f"per-device fit state ≈ {est / 1e6:.1f} MB); "
+                f"per-device fit state and graphs ≈ {est / 1e6:.1f} MB); "
                 f"{remedy}")
             extra = {"oom": True, "estimated_bytes": est,
                      "bucket": bucket, "k_sharded": sharded,
@@ -767,10 +887,12 @@ class FitScheduler:
         if key not in self._bucket_caps:
             from ..inference.ensemble import max_k_for_budget
             cap_rep = max_k_for_budget(self.k_budget_bytes, ndim,
-                                       config.nsteps)
+                                       config.nsteps,
+                                       graph_bytes=self._graph_bytes)
             cap_sh = max_k_for_budget(
                 self.k_budget_bytes, ndim, config.nsteps,
-                n_replicas=self._k_replicas) if self.k_sharded \
+                n_replicas=self._k_replicas,
+                graph_bytes=self._graph_bytes) if self.k_sharded \
                 else cap_rep
             self._bucket_caps[key] = (cap_rep, cap_sh)
         return self._bucket_caps[key]
@@ -807,9 +929,18 @@ class FitScheduler:
         for req in expired:
             self._count("expired")
             self._fits_counter("expired")
-        live = [r for r in live if r.future._set_running()]
-        if not live:
-            return
+        claimed = [r for r in live if r.future._set_running()]
+        if self._lockstep is not None:
+            taken = set(map(id, claimed))
+            self._lead(claimed, [(r.id, "expired") for r in expired]
+                       + [(r.id, "cancelled") for r in live
+                          if id(r) not in taken])
+        if claimed:
+            self._dispatch_live(claimed, now)
+
+    def _dispatch_live(self, live, now):
+        """Dispatch the claimed requests ``live`` (one config), split
+        into groups no larger than the memory-capped top bucket."""
         config = live[0].config
         ndim = int(live[0].guess.shape[0])
         allowed = self._allowed_buckets(config, ndim)
@@ -854,6 +985,8 @@ class FitScheduler:
             inits[i] = req.guess
         inits[n:] = inits[0]
 
+        ks = self.model.k_sharding(2) if use_sharded else None
+        base = self._memory_base()
         if self.resources is not None:
             # Busy-window bracket: everything between enter and exit
             # is device work, the numerator of the duty-cycle
@@ -877,7 +1010,7 @@ class FitScheduler:
                     randkey=config.randkey,
                     const_randkey=config.const_randkey, progress=False,
                     fn_args=(self._dynamic,),
-                    donate_carry=self.donate_carry)
+                    donate_carry=self.donate_carry, carry_sharding=ks)
                 finals = traj[-1]
                 if finals.is_cuda:
                     # Fence so the adam_segments trace span measures
@@ -893,9 +1026,13 @@ class FitScheduler:
                 # loss is not in the fit's return).
                 key = init_randkey(config.randkey) if config.with_key \
                     else 0
-                losses, _ = self.model.batched_loss_and_grad_fn(
-                    config.with_key, k_sharded=use_sharded)(
-                    finals, self._dynamic, key)
+                program = self.model.batched_loss_and_grad_fn(
+                    config.with_key, k_sharded=use_sharded)
+                if ks is None:
+                    losses, _ = program(finals, self._dynamic, key)
+                else:       # this process's rows, then all of them
+                    losses = ks.gather(program(ks.local(finals),
+                                               self._dynamic, key)[0])
                 # One read back of the whole bucket: trajectory (its
                 # last row the finals) and losses in one copy.
                 flat = torch.cat([traj.reshape(-1),
@@ -997,7 +1134,7 @@ class FitScheduler:
                 occupancy=round(n / bucket, 4),
                 fit_s=round(fit_s, 6),
                 poisoned=int(np.sum(poisoned[:n])))
-        self._memory_truth(config, ndim, bucket, use_sharded)
+        self._memory_truth(config, ndim, bucket, use_sharded, base)
         self._refresh_gauges(bucket, n)
 
     def _resource_ring(self):
@@ -1010,16 +1147,28 @@ class FitScheduler:
         self.resources.sample()          # never raises
         return self.resources.ring()
 
+    def _memory_base(self) -> Optional[int]:
+        """At a dispatch's start, with memory truth on and the model on
+        the card: reset the card's peak statistic and return the bytes
+        allocated now (``None`` otherwise)."""
+        if (self.telemetry is None and self._metrics is None) \
+                or self._device.type != "cuda":
+            return None
+        torch.cuda.reset_peak_memory_stats(self._device)
+        return torch.cuda.memory_allocated(self._device)
+
     def _memory_truth(self, config, ndim: int, bucket: int,
-                      use_sharded: bool):
-        """Per-dispatch memory-truth record: measured device peak
-        (``torch.cuda.max_memory_allocated`` of the model's card,
-        ``None`` on the CPU — the regress gate treats nulls as
-        warn-only) cross-checked against the ensemble memory model
-        for the layout that just ran.  The model counts the Adam
-        carry, not each row's autograd graph, so on the card the
-        ratio reads far above 1.  Never raises — a probe failure
-        costs the record, not the dispatch."""
+                      use_sharded: bool, base: Optional[int] = None):
+        """Per-dispatch memory-truth record: the dispatch's measured
+        device peak above ``base``, what the card held when it began
+        (``torch.cuda.max_memory_allocated`` of the model's card since
+        :meth:`_memory_base`; ``None`` on the CPU — the regress gate
+        treats nulls as warn-only), cross-checked against the ensemble
+        memory model for the layout that just ran: the Adam carry and
+        each of this process's rows' autograd graphs
+        (:func:`~multigrad_tpu_torch.inference.row_graph_bytes`).  Never
+        raises — a probe failure costs the record, not the
+        dispatch."""
         if self.telemetry is None and self._metrics is None:
             return
         try:
@@ -1030,9 +1179,11 @@ class FitScheduler:
             n_replicas = self._k_replicas if use_sharded else 1
             modeled = ensemble_memory_model(
                 bucket, ndim, int(config.nsteps),
-                n_replicas=n_replicas)
+                n_replicas=n_replicas, graph_bytes=self._graph_bytes)
+            peak = device_memory(self._device)["peak_bytes"]
             mvm = measured_vs_modeled(
-                device_memory(self._device)["peak_bytes"], modeled)
+                None if peak is None or base is None else peak - base,
+                modeled)
             if self.telemetry is not None:
                 self.telemetry.log(
                     "measured_vs_modeled", bucket=bucket, ndim=ndim,

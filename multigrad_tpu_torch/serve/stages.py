@@ -24,8 +24,8 @@ arXiv:2412.14374) over this repo's planes:
   :class:`PredictiveCheckStage`) run on the runner's local model, on
   its device — HMC with ``k_sharded`` resolved through
   :func:`~multigrad_tpu_torch.inference.ensemble
-  .resolve_k_shard_topology` (replicated: the port has no replica axis
-  yet, and ``True`` raises) — because their products are exactly
+  .resolve_k_shard_topology` (chains over the replica axis of a model
+  on an ensemble comm, replicated otherwise) — because their products are exactly
   the small host-side artifacts the pipeline flows between stages.
 
 Artifact contract: every stage returns a **JSON-able dict** of small
@@ -358,8 +358,10 @@ class HmcStage(Stage):
     by the Laplace proposal when one is upstream (chain inits
     scattered by the Laplace stderr; inverse mass set to the Laplace
     variances).  Runs host-side on the runner's local model, on its
-    device; ``k_sharded="auto"`` resolves to the replicated sampler
-    (the port has no replica axis yet) and ``True`` raises."""
+    device; ``k_sharded="auto"`` shards the chains over the replica axis
+    of a model on :func:`~multigrad_tpu_torch.parallel.ensemble_comm`
+    (the chain count divisible by R) and runs replicated otherwise;
+    ``True`` raises ``ValueError`` without a replica axis."""
 
     num_samples: int = 300
     num_warmup: int = 200

@@ -45,7 +45,8 @@ __all__ = ["CommCounter", "record_collective", "traced_comm",
 _ACTIVE = threading.local()
 
 #: The program kinds :func:`measure_model_comm` runs.
-KINDS = ("loss_and_grad", "batched_loss_and_grad", "sumstats_jac_rev")
+KINDS = ("loss_and_grad", "batched_loss_and_grad",
+         "batched_loss_and_grad_sharded", "sumstats_jac_rev")
 
 
 def _active_counters() -> list:
@@ -85,6 +86,10 @@ class CommCounter:
         Number of collectives run, per op name.
     bytes : dict[str, int]
         Logical payload bytes, per op name.
+    calls_by_axis, bytes_by_axis : dict[str, int]
+        The same, per mesh axis, for the collectives of comms that name
+        one (an :func:`~multigrad_tpu_torch.parallel.ensemble_comm`'s data
+        and replica axes); a flat comm's are in the totals only.
     """
 
     #: Optional per-call record, ``per_call(op, value, nbytes)``: a
@@ -95,15 +100,27 @@ class CommCounter:
     def __init__(self):
         self.calls: dict = {}
         self.bytes: dict = {}
+        self.calls_by_axis: dict = {}
+        self.bytes_by_axis: dict = {}
 
     # -- accounting ---------------------------------------------------------
-    def record(self, op: str, nbytes: int, n_calls: int = 1):
+    def record(self, op: str, nbytes: int, n_calls: int = 1,
+               axis: Optional[str] = None):
         self.calls[op] = self.calls.get(op, 0) + n_calls
         self.bytes[op] = self.bytes.get(op, 0) + nbytes
+        if axis is not None:
+            self.calls_by_axis[axis] = \
+                self.calls_by_axis.get(axis, 0) + n_calls
+            self.bytes_by_axis[axis] = \
+                self.bytes_by_axis.get(axis, 0) + nbytes
 
     def merge(self, other: "CommCounter") -> "CommCounter":
         for op, n in other.calls.items():
             self.record(op, other.bytes.get(op, 0), n)
+        for axis, n in other.calls_by_axis.items():
+            self.calls_by_axis[axis] = self.calls_by_axis.get(axis, 0) + n
+            self.bytes_by_axis[axis] = self.bytes_by_axis.get(axis, 0) \
+                + other.bytes_by_axis.get(axis, 0)
         return self
 
     def scaled(self, factor: int) -> "CommCounter":
@@ -161,7 +178,16 @@ class CommCounter:
 
 
 def record_collective(op: str, value, n_calls: int = 1):
-    """Report one collective's payload to every active counter.
+    """Report one collective's payload to every active counter (a comm
+    that names no axis: :func:`record_axis_collective`)."""
+    record_axis_collective(None, op, value, n_calls)
+
+
+def record_axis_collective(axis: Optional[str], op: str, value,
+                           n_calls: int = 1):
+    """Report one collective's payload to every active counter, under the
+    mesh ``axis`` its comm reduces over (``None``: a comm that names
+    none).
 
     Called by the collectives where they run.  No-op (one attribute
     read) when no counter is active, so the instrumentation costs the
@@ -172,7 +198,7 @@ def record_collective(op: str, value, n_calls: int = 1):
         return
     nbytes = sum(leaf_nbytes(leaf) for leaf in _leaves(value))
     for counter in stack:
-        counter.record(op, nbytes, n_calls)
+        counter.record(op, nbytes, n_calls, axis)
         if counter.per_call is not None:
             counter.per_call(op, value, nbytes)
 
@@ -193,7 +219,9 @@ def measure_model_comm(model, params, kind: str = "loss_and_grad",
     """Collective traffic of ONE execution of a model's program ``kind``.
 
     Runs the program once on ``params`` (``(ndim,)``, or ``(K, ndim)``
-    for ``"batched_loss_and_grad"``) under a :class:`CommCounter`: one
+    for ``"batched_loss_and_grad"``; the full ``(K, ndim)`` batch for
+    ``"batched_loss_and_grad_sharded"``, of which this process evaluates
+    its replica slice's rows) under a :class:`CommCounter`: one
     evaluation, kernels included.  For the paper's
     headline program (``"loss_and_grad"``) the result is the claim
     itself: ``total_bytes == (|sumstats| + |params|) · itemsize`` in 2
@@ -215,6 +243,11 @@ def measure_model_comm(model, params, kind: str = "loss_and_grad",
         elif kind == "batched_loss_and_grad":
             model.batched_loss_and_grad_fn(randkey is not None)(
                 params, model.aux_leaves(), randkey)
+        elif kind == "batched_loss_and_grad_sharded":
+            model.batched_loss_and_grad_fn(randkey is not None,
+                                           k_sharded=True)(
+                model.k_sharding(2).local(params), model.aux_leaves(),
+                randkey)
         else:
             model.calc_sumstats_and_jac_from_params(params,
                                                     randkey=randkey)

@@ -180,9 +180,11 @@ class ProgramCost:
     input/captured/output footprints — ``min_hbm_bytes`` (their sum) is
     the fused ideal of one read per input and one write per output.
     ``comm_bytes``/``comm_calls`` are the collectives' payload and count
-    (:func:`~.comm.record_collective`).  The port's collectives name no
-    mesh axis, so their payload is ``comm_bytes_unattributed``, folded
-    against the fast link; ``comm_bytes_by_axis`` stays empty.
+    (:func:`~.comm.record_collective`).  The collectives of an
+    :func:`~multigrad_tpu_torch.parallel.ensemble_comm` name their axis
+    (``data`` or ``replica``) and land in ``comm_bytes_by_axis``; a flat
+    comm's name none, so their payload is ``comm_bytes_unattributed``,
+    folded against the fast link.
     """
 
     flops: float = 0.0
@@ -385,7 +387,11 @@ def run_counted(fn, args, trace=None):
         out = fn(*meta_args)
     cost.out_bytes = sum(leaf_nbytes(t) for t in _tensors(out))
     cost.const_bytes = int(sum(mode._consts.values()))
-    cost.comm_bytes = cost.comm_bytes_unattributed = int(comm.total_bytes)
+    cost.comm_bytes = int(comm.total_bytes)
+    cost.comm_bytes_by_axis = {axis: int(nbytes) for axis, nbytes
+                               in comm.bytes_by_axis.items()}
+    cost.comm_bytes_unattributed = cost.comm_bytes \
+        - sum(cost.comm_bytes_by_axis.values())
     cost.comm_calls = int(comm.total_calls)
     return cost, out
 
@@ -409,6 +415,15 @@ def _program(model, kind: str, with_key: bool):
         return model.loss_and_grad_fn(with_key)
     if kind == "batched_loss_and_grad":
         return model.batched_loss_and_grad_fn(with_key)
+    if kind == "batched_loss_and_grad_sharded":
+        # The K-partitioned program on this process's rows of the full
+        # (K, ndim) batch, as a replica slice runs it.
+        sharded = model.batched_loss_and_grad_fn(with_key, k_sharded=True)
+        ks = model.k_sharding(2)
+
+        def program(params, aux_leaves, key=None):
+            return sharded(ks.local(params), aux_leaves, key)
+        return program
     if kind == "sumstats_jac_rev":
         def program(params, aux_leaves, key=None):
             kwargs = {"randkey": key} if with_key else {}
@@ -435,7 +450,9 @@ def model_cost(model, params, kind: str = "loss_and_grad",
 
     Runs the program over meta copies of ``model.aux_leaves()`` (bound
     through ``_with_leaves``) at meta ``params`` (``(ndim,)``, or
-    ``(K, ndim)`` for ``"batched_loss_and_grad"``): nothing runs on the
+    ``(K, ndim)`` for ``"batched_loss_and_grad"`` and for
+    ``"batched_loss_and_grad_sharded"``, of which this process's replica
+    slice's rows are counted): nothing runs on the
     card, no kernel launches and no memory is taken there.  For the
     headline ``"loss_and_grad"`` program of the SMF model:
     ``transcendentals["erf"] == N·E`` (forward), ``transcendentals["exp"]

@@ -47,11 +47,12 @@ reported but deliberately not a headroom input: the host is not the
 binding resource).
 
 Memory truth closes the loop in the serve scheduler: after each bucket
-dispatch it compares the measured device peak against the ensemble
-memory model (:func:`measured_vs_modeled`) and emits the record, so
-the model can never silently drift from the hardware.  The port's
-model counts the Adam carry only, not each row's autograd graph, so
-on the card the ratio reads far above 1 (ROADMAP.md Queue 2 item 9).
+dispatch it compares the dispatch's measured device peak (above what the
+card held when it began) against the ensemble memory model, the Adam
+carry and each row's autograd graph
+(:func:`~multigrad_tpu_torch.inference.row_graph_bytes`), through
+:func:`measured_vs_modeled`, and emits the record, so the model can
+never silently drift from the hardware.
 
 This module imports only the standard library at module level (torch
 lazily inside the device probe), per the telemetry package contract.

@@ -38,33 +38,48 @@ __all__ = ["model_candidates", "streaming_candidates",
 #: Bucket-size candidates for the serve-scheduler ladder search.
 DEFAULT_BUCKET_CANDIDATES = (1, 2, 4, 8, 16, 32, 64)
 
-#: The extended rungs a sharded-K mesh unlocks in the JAX package; the
-#: port has no replica axis yet (ROADMAP Queue 1 item 6).
+#: The extended rungs sharded K unlocks: with a bucket's rows (their Adam
+#: carry and their autograd graphs) partitioned K/R a process, buckets
+#: past the replicated ceiling become runnable, and the tuner measures
+#: them instead of stopping at a hardcoded max.
 SHARDED_BUCKET_CANDIDATES = DEFAULT_BUCKET_CANDIDATES + (128, 256)
 
 
 def bucket_candidates(model, nsteps: int, ndim: int = 2,
                       k_sharded: bool = False,
                       budget_bytes=None) -> tuple:
-    """The bucket-size candidate set for one model and workload, capped
-    by :func:`~multigrad_tpu_torch.inference.max_k_for_budget` when a
+    """The bucket-size candidate set for one model and workload: the
+    sharded ladder when the K axis shards, capped by
+    :func:`~multigrad_tpu_torch.inference.max_k_for_budget` when a
     per-device ``budget_bytes`` is given (the cap is derived, never a
-    hardcoded max; the smallest rung always survives).  That memory model
-    counts the Adam carry only — trajectory and moments — not the
-    autograd graph a row of the port's batched call holds until its
-    backward (≈0.4 GB a row at 1e8 halos; ROADMAP Queue 2 item 9), so the
-    cap admits more than the card can hold at large catalogs.
-    ``k_sharded=True`` raises: sharded K is not ported yet."""
-    from ..core.model import _require_replicated_k
-    from ..inference.ensemble import max_k_for_budget
+    hardcoded max; the smallest rung always survives).  The memory model
+    counts the Adam carry and each row's autograd graph, which the
+    port's batched call holds until its backward
+    (:func:`~multigrad_tpu_torch.inference.row_graph_bytes`, ≈0.4 GB a
+    row at 1e8 halos).  Each rung is judged under the layout it would
+    run: only rungs the replica count divides run K-partitioned, the
+    rest replicated at full per-device state.  ``k_sharded=True`` needs
+    the model on an ensemble comm (``ValueError`` otherwise)."""
+    from ..inference.ensemble import (k_shards_bucket, max_k_for_budget,
+                                      row_graph_bytes)
 
-    _require_replicated_k(k_sharded)
-    del model
-    cands = DEFAULT_BUCKET_CANDIDATES
+    cands = SHARDED_BUCKET_CANDIDATES if k_sharded \
+        else DEFAULT_BUCKET_CANDIDATES
     if budget_bytes is None:
         return cands
-    cap = max_k_for_budget(int(budget_bytes), int(ndim), int(nsteps))
-    kept = tuple(b for b in cands if b <= cap)
+    n_replicas = model.k_shard_replicas if k_sharded else 1
+    if k_sharded:
+        model._require_k_shard_axis()
+    graph = row_graph_bytes(model)
+    cap_rep = max_k_for_budget(int(budget_bytes), int(ndim), int(nsteps),
+                               graph_bytes=graph)
+    cap_sh = max_k_for_budget(int(budget_bytes), int(ndim), int(nsteps),
+                              n_replicas=n_replicas, graph_bytes=graph) \
+        if k_sharded else cap_rep
+    kept = tuple(
+        b for b in cands
+        if b <= (cap_sh if k_shards_bucket(b, k_sharded, n_replicas)
+                 else cap_rep))
     return kept or cands[:1]
 
 

@@ -374,12 +374,19 @@ def tune_buckets(model, guess, config=None, candidates=None,
     the per-step host work the rows share — shows only measured.
 
     ``candidates=None`` takes :func:`~.space.bucket_candidates`, capped
-    by ``budget_bytes`` through the carry-only memory model.
-    ``k_sharded=True`` raises: sharded K is not ported yet.  The winner
-    persists under the ``buckets`` key; ``FitScheduler(buckets="auto")``
-    and fleet workers resolve it at boot.
+    by ``budget_bytes`` through the memory model (the carry and the
+    rows' graphs).  On an :func:`~multigrad_tpu_torch.parallel
+    .ensemble_comm` (``k_sharded="auto"``, or ``True``) the sharded
+    ladder's rungs are measured through the K-partitioned program and
+    carry, exactly what a sharded ``FitScheduler`` dispatch runs (a
+    rung the replica count does not divide runs replicated, the
+    dispatch rule); every process of the comm makes the call.  The
+    winner persists under the ``buckets`` key;
+    ``FitScheduler(buckets="auto")`` and fleet workers resolve it at
+    boot.
     """
     from ..inference.ensemble import (batched_fit_wrapper,
+                                      k_shards_bucket,
                                       resolve_k_shard_topology)
     from ..optim import adam as _adam
     from ..telemetry.costmodel import model_cost, predicted_time_s
@@ -406,7 +413,6 @@ def tune_buckets(model, guess, config=None, candidates=None,
             k_sharded=sharded, budget_bytes=budget_bytes)
     device = model.device
     dynamic = model.aux_leaves()
-    wrapper = batched_fit_wrapper(model, config.with_key)
     try:
         pred1 = predicted_time_s(model_cost(model, guess),
                                  device_kind=_spec_kind(device)
@@ -417,6 +423,12 @@ def tune_buckets(model, guess, config=None, candidates=None,
 
     records, rates = [], {}
     for k in sorted(set(int(b) for b in candidates)):
+        # The scheduler's dispatch rule: rungs the replica count divides
+        # run the K-partitioned program and carry, the rest replicated.
+        k_shard = k_shards_bucket(k, sharded, n_replicas)
+        wrapper = batched_fit_wrapper(model, config.with_key,
+                                      k_sharded=k_shard)
+        carry_sharding = model.k_sharding(2) if k_shard else None
         inits = torch.as_tensor(np.tile(guess, (k, 1)),
                                 dtype=torch.float32, device=device)
 
@@ -428,7 +440,7 @@ def tune_buckets(model, guess, config=None, candidates=None,
                     learning_rate=config.learning_rate,
                     randkey=config.randkey,
                     const_randkey=config.const_randkey, progress=False,
-                    fn_args=(dynamic,)))
+                    fn_args=(dynamic,), carry_sharding=carry_sharding))
 
         run()                                 # warm-up
         best = float("inf")
@@ -439,7 +451,7 @@ def tune_buckets(model, guess, config=None, candidates=None,
         rates[k] = k * 3600.0 / best
         records.append(dict(
             scope="buckets", knobs={"bucket": k}, chosen=False,
-            k_sharded=False,
+            k_sharded=k_shard,
             predicted_s=(pred1 * config.nsteps * k
                          if pred1 is not None else None),
             measured_s=best,

@@ -1,5 +1,16 @@
-"""Shared test harnesses: deterministic-interleaving replay (a copy of
-the harness in :mod:`multigrad_tpu.utils.testing`).
+"""Shared test harnesses (the port's copies of the JAX package's
+``utils/testing.py``): the sharded-K exactness fixtures and
+deterministic-interleaving replay.
+
+**Exactness fixtures** (:func:`make_exact_shard_model`,
+:func:`bitwise_trajectory_pair`): the claim that the (replica, data)
+layout of :func:`~multigrad_tpu_torch.parallel.ensemble_comm` reproduces
+a flat layout bit for bit needs a model whose arithmetic is exact however
+the comm associates its sums; float sums of arbitrary values round
+differently over 2 processes and over 4.  So every nonzero catalog value
+is the same power of two (``2**-10``), which makes a shard's partial sums
+exact in any order, and the nonzero rows all land on data shard 0 of any
+layout, so every all-reduce adds only zeros to them.
 
 :class:`InterleaveController` / :func:`run_interleavings`: the races a
 serving layer can have (a producer deadlock on a purge, a sink that
@@ -15,9 +26,6 @@ every live thread is parked outside a scheduling point and nothing
 changes for the deadlock window is reported as **deadlocked**, with
 each stuck thread's stack.
 
-The JAX module's exactness fixtures (``ExactShardModel``,
-``bitwise_trajectory_pair``) come with sharded K (ROADMAP.md Queue 1
-item 6).
 """
 from __future__ import annotations
 
@@ -26,11 +34,89 @@ import sys as _sys
 import threading as _threading
 import time as _time
 import traceback as _traceback
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
 
 from .. import _lockdep
+from ..core.model import OnePointModel
 
-__all__ = ["InterleaveOutcome", "InterleaveController",
-           "run_interleavings", "default_schedules"]
+__all__ = ["ExactShardModel", "make_exact_shard_model",
+           "bitwise_trajectory_pair", "InterleaveOutcome",
+           "InterleaveController", "run_interleavings", "default_schedules"]
+
+
+@dataclass
+class ExactShardModel(OnePointModel):
+    """Linear sumstats and a quadratic loss over mass on data shard 0
+    only (see the module docstring for why it is exact in any
+    association)."""
+
+    aux_data: dict = field(default_factory=dict)
+
+    def calc_partial_sumstats_from_params(self, params, randkey=None):
+        return torch.sum(self.aux_data["x"]) * params
+
+    def calc_loss_from_sumstats(self, sumstats, sumstats_aux=None,
+                                randkey=None):
+        return torch.sum((sumstats - self.aux_data["target"]) ** 2)
+
+
+def make_exact_shard_model(comm, n_devices: int = None,
+                           device=None) -> ExactShardModel:
+    """An :class:`ExactShardModel` over ``comm`` whose reductions are exact
+    in any association and participant count: 64 rows of ``2**-10`` (all
+    on data shard 0), zeros elsewhere, ``64 · n_devices`` rows in all
+    (``n_devices`` defaults to the world's process count), on ``device``
+    (``None`` means CUDA)."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import scatter_nd
+    from ..utils.util import resolve_device
+    if n_devices is None:
+        n_devices = dist.get_world_size() if dist.is_available() \
+            and dist.is_initialized() else 1
+    device = resolve_device(device)
+    x = np.zeros(64 * int(n_devices), np.float32)
+    x[:64] = 2.0 ** -10
+    x = scatter_nd(torch.as_tensor(x, device=device), axis=0, comm=comm,
+                   pad_value=0.0)
+    scale = 64 * 2.0 ** -10
+    return ExactShardModel(aux_data=dict(
+        x=x, target=torch.tensor([scale * -1.5, scale * 0.4],
+                                 device=device)), comm=comm)
+
+
+def bitwise_trajectory_pair(comm_replicated, comm_sharded, k: int = 8,
+                            nsteps: int = 12, learning_rate: float = 0.05,
+                            n_devices: int = None, device=None):
+    """The sharded-against-replicated protocol: the same ``(k, 2)``
+    batched Adam scan over a :func:`make_exact_shard_model` twice,
+    replicated on ``comm_replicated`` and K-partitioned (the sharded
+    wrapper and carry) on ``comm_sharded``; returns the two ``(nsteps +
+    1, k, 2)`` trajectories, which the exact fixture makes equal bit for
+    bit.  Every process of the world makes the call."""
+    from ..inference.ensemble import batched_fit_wrapper
+    from ..optim import adam as _adam
+
+    m_rep = make_exact_shard_model(comm_replicated, n_devices=n_devices,
+                                   device=device)
+    m_sh = make_exact_shard_model(comm_sharded, n_devices=n_devices,
+                                  device=device)
+    inits = torch.as_tensor(np.column_stack(
+        [np.linspace(-2.0, -1.0, int(k)),
+         np.linspace(0.3, 0.8, int(k))]).astype(np.float32),
+        device=m_rep.device)
+    t_rep = _adam.run_adam_scan(
+        batched_fit_wrapper(m_rep, False), inits, nsteps=nsteps,
+        learning_rate=learning_rate, progress=False,
+        fn_args=(m_rep.aux_leaves(),))
+    t_sh = _adam.run_adam_scan(
+        batched_fit_wrapper(m_sh, False, k_sharded=True), inits,
+        nsteps=nsteps, learning_rate=learning_rate, progress=False,
+        fn_args=(m_sh.aux_leaves(),), carry_sharding=m_sh.k_sharding(2))
+    return t_rep, t_sh
 
 
 class InterleaveOutcome:

@@ -214,14 +214,16 @@ def test_batched_with_key_forwards_the_seed():
 
 
 def test_batched_input_errors(models):
+    # A flat comm has no replica axis: the K-partitioned program raises,
+    # naming the comm that has one.
     model, rows = models["SMFModel"]
-    with pytest.raises(NotImplementedError, match="k_sharded"):
+    with pytest.raises(ValueError, match="ensemble_comm"):
         model.batched_loss_and_grad_fn(k_sharded=True)
     with pytest.raises(ValueError, match=r"\(K, ndim\)"):
         model.batched_loss_and_grad_fn()(torch.tensor(rows[0]),
                                          model.aux_leaves())
     group, _ = models["joint"]
-    with pytest.raises(NotImplementedError, match="k_sharded"):
+    with pytest.raises(ValueError, match="ensemble_comm"):
         group.batched_loss_and_grad_fn(k_sharded=True)
 
 

@@ -171,7 +171,9 @@ def test_ensemble_input_errors(smf):
     with pytest.raises(ValueError, match="const_randkey"):
         run_multistart_adam(smf, inits=[[-2.0, 0.2]], nsteps=2,
                             const_randkey=True)
-    with pytest.raises(NotImplementedError, match="k_sharded"):
+    # No replica axis on a flat comm: k_sharded=True raises, naming the
+    # comm that has one.
+    with pytest.raises(ValueError, match="ensemble_comm"):
         run_multistart_adam(smf, inits=[[-2.0, 0.2]], nsteps=2,
                             k_sharded=True)
     # The monitoring arguments work: each gives the fit without them.
@@ -231,10 +233,11 @@ def test_k_helpers(smf):
     want, k_j = jax_ens.pad_k_to_replicas(rows, 4)
     assert k == k_j == 5
     np.testing.assert_array_equal(padded.numpy(), np.asarray(want))
-    # No replica axis in the port: "auto" resolves to replicated.
-    assert resolve_k_sharded(smf, 64, 2, 10_000) is False
+    # A flat comm has no replica axis: "auto" resolves to replicated,
+    # whatever the budget, and True raises naming ensemble_comm.
+    assert resolve_k_sharded(smf, 64, 2, 10_000, k_budget_bytes=1) is False
     assert ens_mod.resolve_k_shard_topology(smf) == (False, 1)
-    with pytest.raises(NotImplementedError, match="k_sharded"):
+    with pytest.raises(ValueError, match="ensemble_comm"):
         resolve_k_sharded(smf, 8, 2, 10, k_sharded=True)
     with pytest.raises(ValueError, match="k_sharded must be"):
         resolve_k_sharded(smf, 8, 2, 10, k_sharded="yes")

@@ -486,8 +486,7 @@ ANALYSIS_NAMES = [
 #: Differences by design (ROADMAP Queue 3): the port's keyword-only
 #: ``comm`` of ``run_adam_streamed`` (its checkpoint's writer and
 #: barrier) and ``progress`` of ``trange`` (the port's callers turn the
-#: bar off there; the JAX package picks ``range`` at each call site), and
-#: the memory-budget knob ``k_budget_bytes``, which comes with sharded K;
+#: bar off there; the JAX package picks ``range`` at each call site);
 #: the fleet's ``devices``/``platform`` (a worker's XLA runtime), whose
 #: place the port's ``device`` takes; the counts' ``backend`` (Pallas or
 #: XLA), whose place the tensor's device takes (the CUDA kernel on the
@@ -496,8 +495,7 @@ PORT_ONLY = {"optim.adam.run_adam_streamed": ["comm"],
              "utils.util.trange": ["progress"],
              "optim.adam.adam_trange": ["progress"],
              "optim.bfgs.bfgs_trange": ["progress"]}
-JAX_ONLY = {"inference.ensemble.run_multistart_adam": ["k_budget_bytes"],
-            "serve.fleet.FleetRouter": ["devices", "platform"],
+JAX_ONLY = {"serve.fleet.FleetRouter": ["devices", "platform"],
             "ops.binned.binned_density_jit": ["backend"]}
 
 
@@ -555,6 +553,9 @@ BY_DESIGN = {
                                   "port has no shard_map",
     "hybrid_mesh": "a 2-level jax Mesh; the port's hybrid_comm checks "
                    "the ranks' node-major layout instead",
+    "ensemble_mesh": "the (replica, data) jax Mesh; the port's "
+                     "ensemble_comm lays the ranks out as that grid "
+                     "itself (rank r*D + d) and keeps no mesh",
     "spmd_kernel": "wraps a function in shard_map over the comm's mesh",
     "wrap_spmd": "the same",
     "OrbaxCheckpointer": "orbax is a jax library; the port checkpoints "
@@ -575,19 +576,12 @@ BY_DESIGN = {
                "its card",
     "sharding": "a jax NamedSharding over the comm's mesh",
     "replicated": "the same",
-    "axes": "mesh axis names; the port's collectives name no axis",
-    "free_axes": "the same",
     "analysis.replication": "the replication dataflow over shard_map "
                             "bodies",
     "check_callbacks_in_scan": "in-graph host callbacks inside lax.scan; "
                                "the port's taps copy records between "
                                "steps",
 }
-#: Waits for sharded K (ROADMAP Queue 1 item 6).
-ITEM_6 = {"ensemble_comm", "ensemble_mesh", "k_shard_axis",
-          "k_shard_replicas", "k_sharding", "DEFAULT_K_BUDGET_BYTES",
-          "ExactShardModel", "make_exact_shard_model",
-          "bitwise_trajectory_pair"}
 #: JAX modules whose port has another name.
 RENAMED = {"analysis.jaxprs": "analysis.programs"}
 
@@ -627,7 +621,7 @@ def test_every_jax_public_name_is_ported_or_named():
         for name in _public_names(jmod):
             if hasattr(pmod, name):
                 continue
-            if name in BY_DESIGN or name in ITEM_6:
+            if name in BY_DESIGN:
                 seen.add(name)
                 continue
             missing.append(f"{rel or '<root>'}.{name}")
@@ -637,15 +631,14 @@ def test_every_jax_public_name_is_ported_or_named():
         for name in dir(getattr(multigrad_tpu, cls)):
             if name.startswith("_") or hasattr(getattr(port, cls), name):
                 continue
-            if name in BY_DESIGN or name in ITEM_6:
+            if name in BY_DESIGN:
                 seen.add(name)
                 continue
             missing.append(f"{cls}.{name}")
     assert missing == [], missing
     # Every exception names something the JAX package has and the port
     # lacks: neither set holds a stale entry.
-    assert seen == set(BY_DESIGN) | ITEM_6, \
-        sorted(set(BY_DESIGN) | ITEM_6 - seen)
+    assert seen == set(BY_DESIGN), sorted(set(BY_DESIGN) - seen)
 
 
 def test_missing_names_now_exported():

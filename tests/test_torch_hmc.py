@@ -330,7 +330,10 @@ def test_chain_init_shapes_and_errors(models, prob):
 @pytest.mark.parametrize("kwargs", [dict(k_sharded=True)],
                          ids=["k_sharded"])
 def test_unported_options_raise(models, prob, kwargs):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # Sharded chains need a replica axis: on a flat comm k_sharded=True
+    # raises, naming the comm that has one (tests/test_torch_sharded_k.py
+    # runs it on one).
+    with pytest.raises(ValueError, match="ensemble_comm"):
         run_hmc(models[0], prob["mle"], num_samples=2, num_warmup=0,
                 **kwargs)
 

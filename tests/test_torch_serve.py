@@ -448,7 +448,7 @@ def test_bucket_ladder_resolution(local_model, tmp_path, monkeypatch):
     with FitScheduler(local_model, tuning_table=str(tmp_path / "t.json"),
                       start=False) as sched:
         assert sched.buckets == DEFAULT_BUCKETS
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="ensemble_comm"):
         FitScheduler(local_model, k_sharded=True, start=False)
     with pytest.raises(ValueError):
         FitScheduler(local_model, buckets="fast", start=False)
@@ -456,13 +456,28 @@ def test_bucket_ladder_resolution(local_model, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("budget", [None, 10_000, 40_000, 10 ** 9])
 def test_memory_budget_caps_the_ladder_as_jax(budget, jax_aux,
-                                              local_model):
+                                              local_model, monkeypatch):
+    from multigrad_tpu_torch.inference import ensemble as ens
     config = FitConfig(nsteps=50)
-    with FitScheduler(local_model, buckets=(1, 4, 16, 64), start=False,
+    ladder = (1, 4, 16, 64)
+    # The port's cap counts each row's autograd graph (4 bytes a halo,
+    # 600 halos) beside the JAX package's carry: a rung is admitted when
+    # the memory model's estimate of it fits the budget.
+    graph = ens.row_graph_bytes(local_model)
+    with FitScheduler(local_model, buckets=ladder, start=False,
+                      k_budget_bytes=budget) as port:
+        got = port._allowed_buckets(config, 2)
+    fits = tuple(b for b in ladder if budget is None or ens
+                 .ensemble_memory_model(b, 2, 50, graph_bytes=graph)
+                 <= budget)
+    assert got == (fits or ladder[:1])
+    # With the graph term set to 0, the JAX package's ladder.
+    monkeypatch.setattr(ens, "GRAPH_BYTES_PER_CATALOG_ROW", 0)
+    with FitScheduler(local_model, buckets=ladder, start=False,
                       k_budget_bytes=budget) as port:
         got = port._allowed_buckets(config, 2)
     with JaxScheduler(JaxSMFModel(aux_data=dict(jax_aux)),
-                      buckets=(1, 4, 16, 64), start=False,
+                      buckets=ladder, start=False,
                       k_budget_bytes=budget) as ref:
         want = ref._allowed_buckets(JaxFitConfig(nsteps=50), 2)
     assert got == want

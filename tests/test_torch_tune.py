@@ -40,7 +40,8 @@ from multigrad_tpu_torch.tune import (TuningTable, make_key,
 from multigrad_tpu_torch.tune.resolve import (aux_model_key,
                                               resolve_donate_carry,
                                               resolve_stream_knobs)
-from multigrad_tpu_torch.tune.space import (bucket_candidates,
+from multigrad_tpu_torch.tune.space import (DEFAULT_BUCKET_CANDIDATES,
+                                            bucket_candidates,
                                             model_candidates,
                                             streaming_candidates)
 from multigrad_tpu_torch.tune.tuner import model_key
@@ -501,7 +502,7 @@ def test_aux_model_key_matches_jax(kw):
                            backend="cpu", device_kind="cpu")
 
 
-def test_candidate_lists_match_jax():
+def test_candidate_lists_match_jax(monkeypatch):
     from multigrad_tpu.data import StreamingOnePointModel as JaxStreaming
     from multigrad_tpu_torch.data import StreamingOnePointModel
 
@@ -536,11 +537,21 @@ def test_candidate_lists_match_jax():
         assert port == want
     model = small_smf(1000)
     jmodel = jsmf.SMFModel(aux_data=jsmf.make_smf_data(1000))
+    from multigrad_tpu_torch.inference import ensemble as ens
+    # The cap adds each row's autograd graph to the JAX package's carry
+    # (4 bytes a halo here: 1,000 halos), so at 10,000 bytes it admits
+    # one row where the JAX package's admits 4; with the graph term set
+    # to 0 the two candidate lists are the same.
+    for budget, want in ((None, DEFAULT_BUCKET_CANDIDATES), (10_000, (1,)),
+                         (10 ** 9, DEFAULT_BUCKET_CANDIDATES)):
+        assert bucket_candidates(model, 200, 2, budget_bytes=budget) == want
+    monkeypatch.setattr(ens, "GRAPH_BYTES_PER_CATALOG_ROW", 0)
     for budget in (None, 10_000, 10 ** 9):
         assert bucket_candidates(model, 200, 2, budget_bytes=budget) == \
             jtune.bucket_candidates(jmodel, 200, 2, budget_bytes=budget)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        bucket_candidates(model, 200, 2, k_sharded=True)
+    with pytest.raises(ValueError, match="ensemble_comm"):
+        bucket_candidates(model, 200, 2, k_sharded=True,
+                          budget_bytes=10_000)
 
 
 def test_history_chunk_candidates_stay_on_the_card():

@@ -67,7 +67,10 @@ def main():
     lbfgs_card = cs.lbfgs_card_phase()
     hmc = cs.hmc_phase(reset_launches, read_launches, wrappers, model,
                        ensemble.pop("ens"))
-    del hmc["start"]
+    for key in ("start", "result", "inv_mass"):
+        del hmc[key]
+    for key in ("rows", "losses", "grads"):
+        del batched[key]
     del model
     torch.cuda.empty_cache()
     # Phase 5's fit without a comm, the reference of the NCCL run.
