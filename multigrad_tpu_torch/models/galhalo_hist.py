@@ -46,6 +46,7 @@ from ..core.model import OnePointModel
 from ..ops.binned import binned_density, fused_bin_window
 from ..parallel.collectives import scatter_nd
 from ..parallel.mesh import MeshComm
+from ..telemetry.spans import span
 from ..utils.util import pad_to_multiple, resolve_device
 from .galhalo import sample_log_halo_masses
 
@@ -183,7 +184,10 @@ def _mean_log_mstar_block(log_mh0, params, t_grid, obs_indices):
     sfr = torch.pow(10.0, lg_sfr - lg_ref)
     dt = torch.diff(t_grid)[None, :]
     increments = 0.5 * (sfr[:, 1:] + sfr[:, :-1]) * dt    # (n, T-1)
-    mstar_cum = torch.cumsum(increments, dim=1)           # up to t_k
+    # The scan: a profiler range (no logger) in the forward and in the
+    # checkpoint's recompute; its backward is traced back to it.
+    with span(None, "hist.cumsum"):
+        mstar_cum = torch.cumsum(increments, dim=1)       # up to t_k
     # Columns by views: an index tensor would cost a host-to-device copy.
     cols = torch.stack([mstar_cum[:, i - 1] for i in obs_indices], dim=1)
     logsm = lg_ref + torch.log10(torch.clamp(cols, min=1e-30))

@@ -401,28 +401,32 @@ def _run_adam_loop(loss_and_grad: Callable, guess, nsteps: int = 100,
     with (monitor.running(start) if monitor is not None
           else contextlib.nullcontext()):
         for i in adam_trange(nsteps - start, progress=progress):
-            step = start + i
-            kwargs = {}
-            if key is not None:
-                if const_randkey:
-                    kwargs["randkey"] = key
-                else:
-                    key, kwargs["randkey"] = split_key(key)
-            out = fn(u, **kwargs)
-            u, mu, nu, update = adam_update(u, out[1], mu, nu,
-                                            bias_corrections(step),
-                                            learning_rate)
-            traj.append(u)
-            if monitor is not None:
-                monitor.step(step, out, u, update)
-            if save is not None and step + 1 < nsteps:
-                if monitor is not None and (step + 1) % every == 0 \
-                        and monitor.tripped():
-                    # The latch fired: keep the last good restart state
-                    # (the one the postmortem bundle points at).
-                    stopped = True
-                    break
-                save(step + 1, u, mu, nu, key, traj)
+            # Profiler ranges only, no record a step: the loop's host work
+            # and the update's (perfbench's ``adam.*`` metrics).
+            with span(None, "adam.step"):
+                step = start + i
+                kwargs = {}
+                if key is not None:
+                    if const_randkey:
+                        kwargs["randkey"] = key
+                    else:
+                        key, kwargs["randkey"] = split_key(key)
+                out = fn(u, **kwargs)
+                with span(None, "adam.update"):
+                    u, mu, nu, update = adam_update(u, out[1], mu, nu,
+                                                    bias_corrections(step),
+                                                    learning_rate)
+                traj.append(u)
+                if monitor is not None:
+                    monitor.step(step, out, u, update)
+                if save is not None and step + 1 < nsteps:
+                    if monitor is not None and (step + 1) % every == 0 \
+                            and monitor.tripped():
+                        # The latch fired: keep the last good restart
+                        # state (the one the postmortem bundle points at).
+                        stopped = True
+                        break
+                    save(step + 1, u, mu, nu, key, traj)
     traj = torch.stack(traj)
     if bounded:
         traj = inverse_transform_array(traj, low, high)

@@ -315,7 +315,8 @@ class DeviceWindows:
     def events(self, fn):
         """The device events of ``fn()`` in a profiler window, as ``(name,
         stream, start us, end us)``, and the wall us.  The lead-in's
-        spin kernels are left out of both."""
+        spin kernels are left out of both, and the device's annotations
+        of host ranges out of the events."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -331,7 +332,10 @@ class DeviceWindows:
                 wall_us = (time.perf_counter() - t0) * 1e6
             events, lead = [], 0
             for evt in prof.events():
-                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                # A host range (a span's) shows on the device too, as an
+                # annotation over its kernels: not device work of its own.
+                if evt.device_type != torch.autograd.DeviceType.CUDA \
+                        or evt.is_user_annotation:
                     continue
                 if SPIN_KERNEL in evt.name:
                     lead += 1

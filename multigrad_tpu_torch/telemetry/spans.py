@@ -9,7 +9,11 @@ for some wall-clock window*; a span names the window, nests (a
 ``fit`` span contains ``checkpoint`` spans), and lands in the same
 record stream as the taps, so one JSONL file tells the whole story:
 when each checkpoint was cut, what fraction of the fit the stream
-spent stalled.
+spent stalled.  While a ``torch.profiler`` session runs, the same span
+also opens a ``record_function`` range named ``mgt.<name>``, so the
+profiler's trace holds the program's own layers beside the kernels they
+launched, on the trace's clock; with no profiler and no logger a span
+does nothing.
 
 :class:`Heartbeat` is the liveness layer production pod training
 treats as table stakes: a long streamed fit that stops ticking (a
@@ -24,6 +28,7 @@ identifiable from the surviving hosts' files.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from typing import Optional
@@ -31,6 +36,17 @@ from typing import Optional
 __all__ = ["span", "Heartbeat"]
 
 _STACK = threading.local()
+#: The context of a span that records nothing (reusable).
+_NOOP = contextlib.nullcontext()
+#: ``torch.autograd.profiler``, found in ``sys.modules`` at the first span
+#: after torch is imported (a profiler cannot run before).
+_PROFILER = None
+
+
+def _profiler():
+    global _PROFILER
+    _PROFILER = sys.modules.get("torch.autograd.profiler")
+    return _PROFILER
 
 
 def _span_stack() -> list:
@@ -40,7 +56,6 @@ def _span_stack() -> list:
     return stack
 
 
-@contextlib.contextmanager
 def span(logger, name: str, trace=None, **fields):
     """Record a named wall-clock span around a block.
 
@@ -57,30 +72,49 @@ def span(logger, name: str, trace=None, **fields):
     stream correlate with the distributed request trace that
     triggered the fit (join on ``trace_id``).
 
-    ``logger=None`` is a no-op context — callers can wire spans
+    While a profiler runs (``torch.autograd.profiler``'s process-wide
+    flag, which every thread sees, unlike the thread-local one), the
+    span also opens the range ``mgt.<name>``, with or without a logger:
+    ranges nest as spans do, and a thread the profiler does not record
+    drops them at no cost to the result.
+
+    ``logger=None`` with no profiler running is a no-op: one flag read
+    and a shared empty context, so callers can wire spans into hot loops
     unconditionally and let the telemetry flag decide.
     """
-    if logger is None:
-        yield
-        return
-    if trace is not None:
-        fields = {"trace_id": trace.trace_id,
-                  "parent_span_id": trace.span_id, **fields}
-    stack = _span_stack()
-    path = "/".join([*stack, name])
-    stack.append(name)
-    t0 = time.perf_counter()
-    ok = True
-    try:
-        yield
-    except BaseException:
-        ok = False
-        raise
-    finally:
-        stack.pop()
-        logger.log("span", name=name, path=path,
-                   depth=len(stack), elapsed_s=time.perf_counter() - t0,
-                   ok=ok, **fields)
+    prof = _PROFILER or _profiler()
+    ranged = prof is not None and prof._is_profiler_enabled
+    if logger is None and not ranged:
+        return _NOOP
+    return _span(logger, name, trace, fields,
+                 prof.record_function("mgt." + name) if ranged
+                 else _NOOP)
+
+
+@contextlib.contextmanager
+def _span(logger, name, trace, fields, profiler_range):
+    with profiler_range:
+        if logger is None:
+            yield
+            return
+        if trace is not None:
+            fields = {"trace_id": trace.trace_id,
+                      "parent_span_id": trace.span_id, **fields}
+        stack = _span_stack()
+        path = "/".join([*stack, name])
+        stack.append(name)
+        t0 = time.perf_counter()
+        ok = True
+        try:
+            yield
+        except BaseException:
+            ok = False
+            raise
+        finally:
+            stack.pop()
+            logger.log("span", name=name, path=path,
+                       depth=len(stack), elapsed_s=time.perf_counter() - t0,
+                       ok=ok, **fields)
 
 
 class Heartbeat:
