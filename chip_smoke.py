@@ -33,9 +33,12 @@ order:
    backward in a profiler window; fused counts against dense counts;
    timed at 1e6 and 1e8 with the history path's per-particle sigma, with
    the wrapper and on the device;
-9. the history model on the card against the same model on the CPU
-   (the plain versions), fed the card's mean log M* and whole, at 1e6
-   halos, dense and fused;
+9. the history kernels (``csrc/hist_history.cu``, one launch each way)
+   against the plain history on the card at 1e6 halos: mean log M* and
+   the parameter gradient, bit-identical on repeat, timed; then the
+   history model on the card against the same model on the CPU (the
+   plain versions), fed the card's mean log M* and whole, at 1e6 halos,
+   dense and fused;
 10. the history path, dense: ``GalhaloHistModel(make_galhalo_hist_data(
     1e8, chunk_size=1e6)).run_adam`` for 10 steps, launches counted;
 11. the history path, fused: the same with 41 edges, six epochs and
@@ -3655,8 +3658,10 @@ def main():
     from multigrad_tpu_torch.ops import cuda_build
     from multigrad_tpu_torch.ops import erf_kernels as ek
     from multigrad_tpu_torch.ops import fused_kernels as fk
+    from multigrad_tpu_torch.ops import hist_kernels as hk
     from multigrad_tpu_torch.ops import kernel_costs as kc
     from multigrad_tpu_torch.ops import pair_kernels as pk
+    from multigrad_tpu_torch.models import galhalo_hist as gh
     from tools.hist_card_vs_cpu import evaluate, evaluate_fed, gaps
     wrappers = {"erf_counts_fwd": ek.erf_counts_fwd_cuda,
                 "erf_counts_bwd": ek.erf_counts_bwd_cuda,
@@ -3666,7 +3671,9 @@ def main():
                 "fused_counts_bwd": fk.fused_counts_bwd_cuda,
                 "pair_counts_fwd": pk.pair_counts_fwd_cuda,
                 "pair_rowgrad": pk.pair_rowgrad_cuda,
-                "pair_counts_bwd": pk.pair_counts_bwd_cuda}
+                "pair_counts_bwd": pk.pair_counts_bwd_cuda,
+                "hist_history_fwd": hk.history_fwd_cuda,
+                "hist_history_bwd": hk.history_bwd_cuda}
 
     def reset_launches():
         for fn in wrappers.values():
@@ -4105,6 +4112,59 @@ def main():
     # 9. the history model, card against CPU ----------------------------
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 9")
     hist_guess = np.array(HIST_TRUTH, np.float32) + 0.05
+
+    def history_kernels(n, obs=(7, 12, 15)):
+        """The history kernels against the plain history on the card at
+        ``n`` halos and the model's grid (T = 16): mean log M* within 2e-5
+        dex, the gradient at rtol 1e-3 (``close``), bit-identical on
+        repeat, one launch a call; timed with the wrapper, and the plain
+        history (the backward's plain time is its forward and backward)."""
+        lm = gh.sample_log_halo_masses(n, device=dev)
+        params = torch.tensor(hist_guess, device=dev)
+        t_grid = gh.default_time_grid(16, device=dev)
+        g = torch.randn(len(obs), n, generator=gen, device=dev)
+
+        def plain_grad():
+            p = params.clone().requires_grad_(True)
+            out = gh._mean_log_mstar_torch(lm, p, t_grid, obs)
+            return torch.autograd.grad((out.t() * g).sum(), p)[0]
+
+        def fwd():
+            return hk.history_fwd_cuda(lm, params, t_grid, obs)
+
+        def bwd():
+            return hk.history_bwd_cuda(lm, params, t_grid, obs, g)
+
+        label = f"history kernels at {n:,} halos"
+        got = fwd()
+        fwd_err = float((got - gh._mean_log_mstar_torch(
+            lm, params, t_grid, obs).t()).abs().max())
+        check(fwd_err <= 2e-5, f"{label}: forward off by {fwd_err} dex")
+        check(torch.equal(got, fwd()), f"{label}: forward not deterministic")
+        grad = bwd()
+        check(torch.equal(grad, bwd()), f"{label}: backward not "
+              "deterministic")
+        bwd_err = close(label, "dparams", grad, plain_grad())
+        one_launch(f"{label}, forward", fwd, "history_fwd_kernel")
+        one_launch(f"{label}, backward", bwd, "history_bwd_kernel")
+        out = dict(fwd_err=fwd_err, bwd_err=bwd_err,
+                   fwd_ms=time_ms(fwd, 20), bwd_ms=time_ms(bwd, 20),
+                   fwd_plain_ms=time_ms(lambda: gh._mean_log_mstar_torch(
+                       lm, params, t_grid, obs), 5, 1),
+                   bwd_plain_ms=time_ms(plain_grad, 5, 1),
+                   fwd_device_ms=window_device_ms(
+                       f"{label}, forward", fwd, "history_fwd_kernel"),
+                   bwd_device_ms=window_device_ms(
+                       f"{label}, backward", bwd, "history_bwd_kernel"))
+        log(f"{label}: forward max|err| {fwd_err:.3e} dex, {out['fwd_ms']:.4f}"
+            f" ms ({out['fwd_device_ms']} device; plain "
+            f"{out['fwd_plain_ms']:.3f} ms); backward max|err| {bwd_err:.3e},"
+            f" {out['bwd_ms']:.4f} ms ({out['bwd_device_ms']} device; plain "
+            f"forward and backward {out['bwd_plain_ms']:.3f} ms); "
+            "bit-identical on repeat, one launch a call")
+        return out
+
+    hist_1e6 = history_kernels(HIST_CHUNK)
     fused_kwargs = dict(bin_edges=np.linspace(*FUSED_EDGES),
                         obs_indices=FUSED_OBS, bin_mode="fused",
                         bin_window=window)
@@ -4193,14 +4253,19 @@ def main():
     # checkpoint's recompute in the backward) and its backward once, for
     # each epoch: 20 x 100 x 3 x 2 = 12,000 forward and 6,000 backward
     # launches dense; 20 x 100 x 6 x 2 = 24,000 and 12,000 fused.
+    # The history kernels: a forward a chunk in the pass and in its
+    # recompute, a backward: 10 x 100 x 2 and 10 x 100, either mode.
+    history = {"hist_history_fwd": HIST_STEPS * chunks * 2,
+               "hist_history_bwd": HIST_STEPS * chunks}
     dense_launches, dense_sps, dense_profile = hist_path(
         "dense", {}, HIST_STEPS,
-        {"erf_counts_fwd_vec": HIST_STEPS * chunks * 3 * 2,
-         "erf_counts_bwd_vec": HIST_STEPS * chunks * 3})
+        history | {"erf_counts_fwd_vec": HIST_STEPS * chunks * 3 * 2,
+                   "erf_counts_bwd_vec": HIST_STEPS * chunks * 3})
     fused_launches, fused_sps, fused_profile = hist_path(
         "fused", fused_kwargs, HIST_STEPS,
-        {"fused_counts_fwd": HIST_STEPS * chunks * len(FUSED_OBS) * 2,
-         "fused_counts_bwd": HIST_STEPS * chunks * len(FUSED_OBS)})
+        history | {"fused_counts_fwd": HIST_STEPS * chunks * len(FUSED_OBS)
+                   * 2,
+                   "fused_counts_bwd": HIST_STEPS * chunks * len(FUSED_OBS)})
     log(f"[{time.perf_counter() - t_start:.0f} s] history path: "
         f"{dense_sps:.4f} steps/s dense, {fused_sps:.4f} steps/s fused")
     # The fused step's window start, scatter and gather run inside the
@@ -4828,6 +4893,13 @@ def main():
                       kc.fused_bwd_ops(n, n_fused_edges, w, vec=True)))
 
     fused_fwd_bound, fused_bwd_bound = fused_bounds(nc)
+    # The history kernels at the chunk's shape (T = 16, K = 3): the halos
+    # read and the (K, n) result written once (the backward reads the
+    # cotangent for it and writes ten floats).
+    hist_fwd_bound = bound(4 * (nc + 10 + 16 + 3 * nc),
+                           kc.hist_fwd_ops(nc, 16, 3))
+    hist_bwd_bound = bound(4 * (nc + 10 + 16 + 3 * nc + 10),
+                           kc.hist_bwd_ops(nc, 16, 3))
     # The pair kernels at the wp(rp) path's shape (an autocorrelation of
     # PAIR_HALOS, 9 edges): positions and weights read once, counts and R,
     # or dw, written once; every pair's separation, and the bins of the
@@ -4872,7 +4944,8 @@ def main():
             device_ms = out[f"{key}_ms"]
         return dict(name=name, route="cuda",
                     source=f"multigrad_tpu_torch/csrc/{source}",
-                    replaces=f"multigrad_tpu/ops/pallas_kernels.py:{line}",
+                    replaces=(f"multigrad_tpu/ops/pallas_kernels.py:{line}"
+                              if line else None),
                     launches=launches[name], launches_on=path,
                     max_abs_err=out[f"{key}_err"], ms=out[f"{key}_ms"],
                     device_ms=device_ms, plain_ms=out[f"{key}_plain_ms"],
@@ -4925,6 +4998,15 @@ def main():
             f"history fused, {hist_run}", fused_1e6, "bwd", fused_bwd_bound,
             kernel_device_ms(fused_profile, "fused_counts_bwd_kernel"),
             "fused_counts.cu"),
+        # No TPU kernel: the JAX package leaves the history to XLA.
+        row("hist_history_fwd", None, dense_launches,
+            f"history dense, {hist_run}", hist_1e6, "fwd", hist_fwd_bound,
+            kernel_device_ms(dense_profile, "history_fwd_kernel"),
+            "hist_history.cu"),
+        row("hist_history_bwd", None, dense_launches,
+            f"history dense, {hist_run}", hist_1e6, "bwd", hist_bwd_bound,
+            kernel_device_ms(dense_profile, "history_bwd_kernel"),
+            "hist_history.cu"),
         row("pair_counts_fwd", 837, wprp_launches,
             f"wp(rp), {PAIR_HALOS:,} halos, 20 Adam steps", pair_1e5,
             "fwd", pair_fwd_bound,

@@ -28,8 +28,9 @@ to the total.  Each chunk's body is rematerialized
 (``torch.utils.checkpoint``): its backward recomputes the chunk's
 forward instead of keeping its ``(chunk, T)`` history tensors, so peak
 memory is ``O(N + chunk·T)`` whatever the epoch count.  On the card the
-counts run the CUDA kernels; a ragged last chunk is padded with the
-neutral sentinel.
+history of a chunk is one CUDA kernel each way
+(:mod:`~multigrad_tpu_torch.ops.hist_kernels`) and the counts run the
+erf kernels; a ragged last chunk is padded with the neutral sentinel.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.model import OnePointModel
+from ..ops import hist_kernels
 from ..ops.binned import binned_density, fused_bin_window
 from ..parallel.collectives import scatter_nd
 from ..parallel.mesh import MeshComm
@@ -163,6 +165,22 @@ def _mean_log_mstar_block(log_mh0, params, t_grid, obs_indices):
     """Mean log10 M*(t_obs) for a block of halos at each observation
     epoch (``obs_indices``, a tuple of ints), shape ``(n, K)``.
 
+    On a CUDA tensor one kernel each way
+    (:mod:`~multigrad_tpu_torch.ops.hist_kernels`, inside a ``hist.history``
+    span; ``params`` the float32 tensor on the card that :func:`_on_card`
+    makes); on CPU and meta tensors :func:`_mean_log_mstar_torch`.
+    """
+    if log_mh0.is_cuda:
+        with span(None, "hist.history"):
+            return hist_kernels.mean_log_mstar_cuda(log_mh0, params, t_grid,
+                                                    obs_indices)
+    return _mean_log_mstar_torch(log_mh0, params, t_grid, obs_indices)
+
+
+def _mean_log_mstar_torch(log_mh0, params, t_grid, obs_indices):
+    """:func:`_mean_log_mstar_block` in PyTorch ops: the kernels' plain
+    version.
+
     Pad halos (``log_mh0 > 100``) are computed at a sanitized mass and
     overwritten with the neutral sentinel afterwards; the ``where`` zeroes
     their cotangents.
@@ -203,6 +221,15 @@ def _halo_chunks(log_mh, chunk_size):
     return chunks
 
 
+def _on_card(params, log_mh):
+    """On the card, ``params`` as the one float32 tensor there that the
+    history kernels read, made once before the chunks; elsewhere
+    unchanged."""
+    if log_mh.is_cuda:
+        return hist_kernels.param_vector(params, log_mh.device)
+    return params
+
+
 def _remat(fn, *args):
     """``fn(*args)``, rematerialized in the backward pass when autograd
     records: only the inputs are kept, and the backward runs ``fn`` again
@@ -230,6 +257,7 @@ def mean_log_mstar(log_mh0, params, t_grid=None,
     if squeeze:
         obs_indices = (t_grid.shape[0] - 1,)
     obs_indices = _check_obs_indices(obs_indices, t_grid)
+    params = _on_card(params, log_mh0)
     n = log_mh0.shape[0]
     if chunk_size is None or n <= chunk_size:
         out = _mean_log_mstar_block(log_mh0, params, t_grid, obs_indices)
@@ -257,11 +285,10 @@ def _chunk_epoch_smfs(lm_chunk, params, aux, obs_indices):
                                   obs_indices)           # (c, K)
     sigma = scatter_sigma(lm_chunk, params)              # (c,)
     return torch.stack([
-        binned_density(logsm[:, k], aux["bin_edges"], sigma,
-                       aux["volume"],
+        binned_density(column, aux["bin_edges"], sigma, aux["volume"],
                        bin_mode=aux.get("bin_mode", "dense"),
                        bin_window=aux.get("bin_window"))
-        for k in range(logsm.shape[1])])                 # (K, B)
+        for column in logsm.unbind(1)])                  # (K, B)
 
 
 def _multi_epoch_smf(log_mh, params, aux):
@@ -270,6 +297,7 @@ def _multi_epoch_smf(log_mh, params, aux):
     sigma is ever materialized."""
     chunk_size = aux.get("chunk_size")
     obs_indices = _check_obs_indices(aux["obs_indices"], aux["time_grid"])
+    params = _on_card(params, log_mh)
     if chunk_size is None or log_mh.shape[0] <= chunk_size:
         return _chunk_epoch_smfs(log_mh, params, aux,
                                  obs_indices).reshape(-1)

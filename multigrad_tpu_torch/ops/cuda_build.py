@@ -38,7 +38,8 @@ from ..utils.util import _notify_compile
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Every kernel source of the port, one shared library each.
-SOURCES = ("erf_counts.cu", "fused_counts.cu", "pair_counts.cu")
+SOURCES = ("erf_counts.cu", "fused_counts.cu", "hist_history.cu",
+           "pair_counts.cu")
 #: Where the shared libraries are built by default:
 #: ``build/multigrad_tpu_torch/`` beside the package.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -57,7 +58,7 @@ PER_BLOCK = 4096
 MAX_BLOCKS_PER_SM = 16
 #: The workspace's ticket counters, one a kernel (an index into
 #: :attr:`Workspace.counters`).
-ERF_FWD, ERF_BWD, FUSED_FWD, FUSED_BWD = range(4)
+ERF_FWD, ERF_BWD, FUSED_FWD, FUSED_BWD, HIST_BWD = range(5)
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -180,7 +181,7 @@ class Workspace(NamedTuple):
     """What a launch on one stream needs besides its tensors."""
     sms: int            # the device's multiprocessors
     stream: int         # the raw handle of the stream
-    counters: int       # pointer to the ticket counters, int32 (4,)
+    counters: int       # pointer to the ticket counters, int32 (5,)
     partials: int       # pointer to the partials buffer, float32
     tensors: tuple      # the two buffers, kept alive
 
@@ -207,7 +208,8 @@ def workspace(device) -> Workspace:
     ws = _WORKSPACES.get(key)
     if ws is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        counters = torch.zeros(4, dtype=torch.int32, device=device)
+        counters = torch.zeros(HIST_BWD + 1, dtype=torch.int32,
+                               device=device)
         partials = torch.empty(PARTIALS, dtype=torch.float32, device=device)
         ws = _WORKSPACES[key] = Workspace(
             sms, key[1], counters.data_ptr(), partials.data_ptr(),

@@ -21,6 +21,18 @@ projected (2), the range test (2) — 19 with a box; per pair inside the
 bins' range, 3 per bin (two compares and a predicated add); per row, 2
 per bin for ``dw = Σ_b g_b R_b`` (the row gradient, the sweep's end).
 
+The history kernels (``csrc/hist_history.cu``), counting each expf,
+log1pf, exp10f and log10f as one operation: the forward per halo and
+time step, log M_h, the lg dM/dt add, x, ±2x, two expf, two log1pf, the
+ramp (3), the efficiency (2), L (2) and the row maximum (1) = 17; per
+increment the shift, exp10f, the trapezoid (3) and the running sum with
+its rounding (2) = 7; per epoch the clamp, log10f and the shift = 3; per
+halo the pad test = 1.  The backward does the forward's L and increments
+again, and per epoch the clamp test and g/cum with its add (3), per time
+step the suffix sum (1), the weight (4), a (3), x (2), two expf, R (5),
+the four efficiency sums (11), b (3) and the four accretion sums (16) =
+46.
+
 The pairs in the bins' range depend on the data; a count made without
 the data (the cost model's, on meta tensors) leaves them out, so it is a
 floor of the kernels' work.
@@ -34,7 +46,8 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 __all__ = ["HBM_BYTES_PER_S", "FP32_OPS_PER_S", "erf_fwd_ops",
            "erf_bwd_ops", "fused_fwd_ops", "fused_bwd_ops",
            "pair_ops_per_pair", "pair_fwd_ops", "pair_rowgrad_ops",
-           "pair_bwd_ops", "active_counting_mode",
+           "pair_bwd_ops", "hist_fwd_ops", "hist_bwd_ops",
+           "active_counting_mode",
            "counting_mode", "declare_kernel"]
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): device memory
@@ -46,6 +59,8 @@ FWD_OPS_PER_CDF, FWD_OPS_PER_BIN, BWD_OPS_PER_EDGE = 29, 2, 10
 INV_OPS, VEC_BWD_OPS_PER_EDGE, VEC_BWD_OPS = 2, 11, 5
 FUSED_BWD_OPS_PER_SLOT, FUSED_BWD_OPS, FUSED_BWD_OPS_SCALAR = 9, 7, 5
 PAIR_OPS, PAIR_OPS_PER_BIN, PAIR_ROW_OPS_PER_BIN = 19, 3, 2
+HIST_OPS_PER_STEP, HIST_OPS_PER_INCREMENT, HIST_OPS_PER_EPOCH = 17, 7, 3
+HIST_BWD_OPS_PER_STEP = 46
 
 
 def erf_fwd_ops(n: int, n_edges: int, vec: bool) -> int:
@@ -105,6 +120,21 @@ def pair_bwd_ops(n1: int, n2: int, n_bins: int, box: bool = True,
     """The sweep over the pairs for ``dw1`` (``n1`` rows)."""
     return (pair_fwd_ops(n1, n2, n_bins, box, in_range)
             + pair_rowgrad_ops(n1, n_bins))
+
+
+def hist_fwd_ops(n: int, n_times: int, n_epochs: int) -> int:
+    """The history forward's operations for ``n`` halos, ``n_times`` time
+    steps and ``n_epochs`` epochs."""
+    return n * (HIST_OPS_PER_STEP * n_times
+                + HIST_OPS_PER_INCREMENT * (n_times - 1)
+                + HIST_OPS_PER_EPOCH * n_epochs + 1)
+
+
+def hist_bwd_ops(n: int, n_times: int, n_epochs: int) -> int:
+    """The history backward's operations for ``n`` halos."""
+    return n * ((HIST_OPS_PER_STEP + HIST_BWD_OPS_PER_STEP) * n_times
+                + HIST_OPS_PER_INCREMENT * (n_times - 1)
+                + HIST_OPS_PER_EPOCH * n_epochs + 1)
 
 
 def active_counting_mode():

@@ -66,6 +66,7 @@ def kernel_launches() -> dict:
     launches its kernel; plain versions on CPU tensors add nothing)."""
     from multigrad_tpu_torch.ops import erf_kernels as ek
     from multigrad_tpu_torch.ops import fused_kernels as fk
+    from multigrad_tpu_torch.ops import hist_kernels as hk
     from multigrad_tpu_torch.ops import pair_kernels as pk
     return {"erf_counts_fwd": ek.erf_counts_fwd_cuda.launches,
             "erf_counts_bwd": ek.erf_counts_bwd_cuda.launches,
@@ -75,7 +76,9 @@ def kernel_launches() -> dict:
             "fused_counts_bwd": fk.fused_counts_bwd_cuda.launches,
             "pair_counts_fwd": pk.pair_counts_fwd_cuda.launches,
             "pair_rowgrad": pk.pair_rowgrad_cuda.launches,
-            "pair_counts_bwd": pk.pair_counts_bwd_cuda.launches}
+            "pair_counts_bwd": pk.pair_counts_bwd_cuda.launches,
+            "hist_history_fwd": hk.history_fwd_cuda.launches,
+            "hist_history_bwd": hk.history_bwd_cuda.launches}
 
 
 def build_model(name: str, kwargs: dict, device=None):

@@ -13,10 +13,10 @@ import re
 import pytest
 
 from multigrad_tpu_torch.ops import (cuda_build, erf_kernels, fused_kernels,
-                                     pair_kernels)
+                                     hist_kernels, pair_kernels)
 
 MODULES = {"erf_counts.cu": erf_kernels, "fused_counts.cu": fused_kernels,
-           "pair_counts.cu": pair_kernels}
+           "hist_history.cu": hist_kernels, "pair_counts.cu": pair_kernels}
 KIND_OF_CTYPE = {ctypes.c_void_p: "pointer", ctypes.c_longlong: "int64",
                  ctypes.c_int: "int32", ctypes.c_float: "float32"}
 

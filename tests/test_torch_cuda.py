@@ -18,10 +18,12 @@ import torch
 from multigrad_tpu_torch.models import (GalhaloHistModel, ParamTuple,
                                         SMFModel, make_galhalo_hist_data,
                                         make_smf_data)
+from multigrad_tpu_torch.models import galhalo_hist as gh
 from multigrad_tpu_torch.models.galhalo_hist import TRUTH as HIST_TRUTH
 from multigrad_tpu_torch.ops import binned as tb
 from multigrad_tpu_torch.ops import erf_kernels as ek
 from multigrad_tpu_torch.ops import fused_kernels as fk
+from multigrad_tpu_torch.ops import hist_kernels as hk
 from multigrad_tpu_torch.ops.binned import binned_erf_counts
 from tools.hist_card_vs_cpu import evaluate, evaluate_fed
 
@@ -290,6 +292,167 @@ def test_history_model_on_card_matches_cpu(dev, mode):
 
 
 # --------------------------------------------------------------------------
+# The history's chunk (csrc/hist_history.cu)
+# --------------------------------------------------------------------------
+def _hist_inputs(dev, n_times, n=100_003, n_pad=3, seed=3):
+    """A ragged chunk of ``n`` halos whose last ``n_pad`` are the pad
+    sentinel, a time grid of ``n_times`` steps and parameters off TRUTH."""
+    lm = gh.sample_log_halo_masses(n - n_pad, device=dev)
+    lm = torch.cat([lm, torch.full((n_pad,), gh._PAD_LOGM, device=dev)])
+    rng = np.random.default_rng(seed)
+    params = np.array(HIST_TRUTH) + 0.05 * rng.standard_normal(10)
+    return (lm, torch.tensor(params, dtype=torch.float32, device=dev),
+            gh.default_time_grid(n_times, device=dev))
+
+
+def _history_and_grad(block, lm, params, t_grid, obs, g):
+    p = params.clone().requires_grad_(True)
+    out = block(lm, p, t_grid, obs)
+    (grad,) = torch.autograd.grad((out * g).sum(), p)
+    return out.detach(), grad
+
+
+# (T, epochs): the model's grid and epochs, and grids of 24 and 64 steps
+# (the kernels' other register caps) with the first and last epochs.
+@pytest.mark.parametrize("n_times,obs", [
+    (16, (7, 12, 15)), (16, (1, 5, 9, 15)), (24, (1, 4, 4, 17, 23)),
+    (64, (1, 32, 63))])
+def test_history_kernels_match_twin(dev, n_times, obs):
+    # The kernels against their plain version on the card.  Mean log M*
+    # (5 to 12 dex) within 2e-5 dex, about 20 float32 ulps: the two take
+    # the same steps, but the card's PyTorch divides by a constant as a
+    # product with its reciprocal and sums the scan in float32 where the
+    # kernel sums in double, as the CPU does, and their expf, log10f and
+    # powf may round apart by an ulp or two; pad halos give the sentinel
+    # exactly.  The gradient at the other kernels' rtol 1e-3 (sums over
+    # 1e5 halos in another order).
+    lm, params, t_grid = _hist_inputs(dev, n_times)
+    g = torch.tensor(np.random.default_rng(4).standard_normal(
+        (lm.shape[0], len(obs))), dtype=torch.float32, device=dev)
+    got, grad = _history_and_grad(gh._mean_log_mstar_block, lm, params,
+                                  t_grid, obs, g)
+    want, grad_want = _history_and_grad(gh._mean_log_mstar_torch, lm,
+                                        params, t_grid, obs, g)
+    pad = lm > 100.0
+    assert bool((got[pad] == gh._PAD_OUT).all())
+    np.testing.assert_allclose(got[~pad].cpu().numpy(),
+                               want[~pad].cpu().numpy(), rtol=0, atol=2e-5)
+    _assert_close(grad, grad_want)
+    assert float(grad[8]) == float(grad[9]) == 0.0
+
+
+def test_history_kernels_repeat_and_count(dev):
+    # One launch a call each way, the same bits on repeat; the backward
+    # reads its cotangent at any strides.
+    lm, params, t_grid = _hist_inputs(dev, 16)
+    obs = (7, 12, 15)
+    before = hk.history_fwd_cuda.launches, hk.history_bwd_cuda.launches
+    out = hk.history_fwd_cuda(lm, params, t_grid, obs)
+    assert torch.equal(out, hk.history_fwd_cuda(lm, params, t_grid, obs))
+    g = torch.linspace(-1.0, 1.0, lm.shape[0] * 3, device=dev).reshape(
+        lm.shape[0], 3)
+    grad = hk.history_bwd_cuda(lm, params, t_grid, obs, g.t())
+    assert torch.equal(grad, hk.history_bwd_cuda(lm, params, t_grid, obs,
+                                                 g.t()))
+    assert torch.equal(grad, hk.history_bwd_cuda(lm, params, t_grid, obs,
+                                                 g.t().contiguous()))
+    assert (hk.history_fwd_cuda.launches, hk.history_bwd_cuda.launches) == \
+        (before[0] + 2, before[1] + 3)
+    with pytest.raises(ValueError, match="float32"):
+        hk.history_fwd_cuda(lm, params.double(), t_grid, obs)
+    with pytest.raises(ValueError, match="epochs"):
+        hk.history_fwd_cuda(lm, params, gh.default_time_grid(65, device=dev),
+                            obs)
+
+
+def test_history_long_grid_is_refused(dev):
+    # The card runs only the kernels: a grid beyond their registers is
+    # refused, not sent to the plain version, and nothing launches.
+    lm, params, _ = _hist_inputs(dev, 16, n=1_000)
+    t_grid = gh.default_time_grid(hk.MAX_TIMES + 1, device=dev)
+    before = hk.history_fwd_cuda.launches
+    with pytest.raises(ValueError, match="time steps"):
+        gh.mean_log_mstar(lm, params, t_grid, obs_indices=(5, 64))
+    assert hk.history_fwd_cuda.launches == before
+
+
+def test_history_params_off_the_card(dev):
+    # Parameters as a CPU or float64 tensor, or a tuple, with halos on the
+    # card: cast once onto the card, the same result and gradient as the
+    # float32 tensor there.  Halo masses that need a gradient raise in
+    # the backward: the kernels differentiate the parameters only.
+    lm, params, t_grid = _hist_inputs(dev, 16, n=1_003)
+    obs = (7, 12, 15)
+
+    def public(lm, p, t_grid, obs):
+        return gh.mean_log_mstar(lm, p, t_grid, obs_indices=obs)
+    want, grad_want = _history_and_grad(public, lm, params, t_grid, obs, 1.0)
+    for other in (params.cpu(), params.double(), params.cpu().double()):
+        got, grad = _history_and_grad(public, lm, other, t_grid, obs, 1.0)
+        assert torch.equal(got, want)
+        assert torch.equal(grad.to(dev, torch.float32), grad_want)
+    assert torch.equal(gh.mean_log_mstar(lm, tuple(params.tolist()), t_grid,
+                                         obs_indices=obs), want)
+    masses = lm.clone().requires_grad_(True)
+    out = gh.mean_log_mstar(masses, params, t_grid, obs_indices=obs)
+    with pytest.raises(RuntimeError, match="parameters only"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("mode", ["dense", "fused"])
+def test_history_model_kernels_against_twin(dev, mode, monkeypatch):
+    # The whole model on the card with the history kernels against the same
+    # model with the plain history, at phase 9's limits against the CPU
+    # (the history rounded two ways), with a ragged last chunk.
+    kwargs = {} if mode == "dense" else dict(
+        bin_edges=np.linspace(7.0, 11.75, 41),
+        obs_indices=(5, 7, 9, 11, 13, 15), bin_mode="fused",
+        sigma_max=0.32)
+    model = GalhaloHistModel(aux_data=make_galhalo_hist_data(
+        300_007, chunk_size=100_000, device=dev, **kwargs))
+    params = np.array(HIST_TRUTH, np.float32) + 0.05
+    card = evaluate(model, params)
+    monkeypatch.setattr(gh, "_mean_log_mstar_block", gh._mean_log_mstar_torch)
+    twin = evaluate(model, params)
+    y_rtol, loss_rtol, grad_rtol = (1e-4, 1e-3, 1e-3) if mode == "dense" \
+        else (1e-4, 2e-3, 8e-3)
+    np.testing.assert_allclose(card[0], twin[0], rtol=y_rtol, atol=1e-10)
+    np.testing.assert_allclose(card[1], twin[1], rtol=loss_rtol)
+    np.testing.assert_allclose(card[2], twin[2], rtol=grad_rtol, atol=1e-7)
+
+
+def test_history_batched_rows_equal_solo_and_repeat(dev):
+    # The one-launch kernels' rule: a K-batched row equals its solo call,
+    # and a call repeats, bit for bit.
+    model = GalhaloHistModel(aux_data=make_galhalo_hist_data(
+        200_003, chunk_size=50_000, device=dev))
+    rows = torch.tensor(np.array(HIST_TRUTH, np.float32)[None, :]
+                        + np.float32([[0.05], [-0.03], [0.02]]),
+                        device=dev)
+    losses, grads = model.batched_loss_and_grad_fn()(rows,
+                                                     model.aux_leaves())
+    for k in range(rows.shape[0]):
+        loss, grad = model.calc_loss_and_grad_from_params(rows[k])
+        again = model.calc_loss_and_grad_from_params(rows[k])
+        assert torch.equal(loss, losses[k]) and torch.equal(grad, grads[k])
+        assert torch.equal(loss, again[0]) and torch.equal(grad, again[1])
+
+
+def test_history_launches_a_chunked_step(dev):
+    # One loss and gradient over 100 chunks: 200 forward launches (the
+    # pass and the checkpoint's recompute) and 100 backward, none of the
+    # plain history on the card, and each epoch's erf kernels as before.
+    model = GalhaloHistModel(aux_data=make_galhalo_hist_data(
+        100_000, chunk_size=1_000, device=dev))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    model.calc_loss_and_grad_from_params(np.array(HIST_TRUTH) + 0.05)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_launch_counts(), launches)]
+    assert moved == [0, 0, 600, 300, 0, 0, 0, 0, 0, 200, 100]
+
+
+# --------------------------------------------------------------------------
 # Pair counts (csrc/pair_counts.cu)
 # --------------------------------------------------------------------------
 def _pair_inputs(dev, n, box, seed):
@@ -535,7 +698,7 @@ def _launch_counts():
         ek.erf_counts_fwd_vec_cuda, ek.erf_counts_bwd_vec_cuda,
         fk.fused_counts_fwd_cuda, fk.fused_counts_bwd_cuda,
         pk.pair_counts_fwd_cuda, pk.pair_rowgrad_cuda,
-        pk.pair_counts_bwd_cuda)]
+        pk.pair_counts_bwd_cuda, hk.history_fwd_cuda, hk.history_bwd_cuda)]
 
 
 def test_model_cost_on_card_runs_nothing(dev):

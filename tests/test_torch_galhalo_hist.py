@@ -20,6 +20,8 @@ So the sumstats are held at an atol of 1e-6 of their largest value, the
 gradient of a well-conditioned linear functional of the sumstats at
 rtol 1e-3, and the loss and its gradient at rtol 1e-2.
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -311,3 +313,82 @@ def test_auto_knobs_not_ported(tmp_path, monkeypatch):
     aux = make_galhalo_hist_data(100, device="cpu")
     model = GalhaloHistModel(aux_data=dict(aux, bin_mode="auto"))
     assert model.aux_data["bin_mode"] == "dense"
+
+
+def test_cpu_and_meta_take_the_plain_history(own_model, monkeypatch):
+    # CPU and meta tensors run the plain history (the CUDA kernels' twin):
+    # the block is the twin's bit for bit, forward and backward, the model
+    # equals one built on the twin alone, and no history kernel launches.
+    from multigrad_tpu_torch.ops import hist_kernels as hk
+    before = hk.history_fwd_cuda.launches, hk.history_bwd_cuda.launches
+    lm = own_model.aux_data["log_halo_masses"][:CHUNK]
+    t_grid = own_model.aux_data["time_grid"]
+    obs = (1, 7, 12, 15)
+    outs = []
+    for block in (th._mean_log_mstar_block, th._mean_log_mstar_torch):
+        p = torch.tensor(GUESS, requires_grad=True)
+        out = block(lm, p, t_grid, obs)
+        outs.append((out, torch.autograd.grad(out.sum(), p)[0]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    meta = th._mean_log_mstar_block(lm.to("meta"), torch.tensor(
+        GUESS, device="meta"), t_grid.to("meta"), obs)
+    assert meta.is_meta and tuple(meta.shape) == (CHUNK, len(obs))
+    loss, grad = own_model.calc_loss_and_grad_from_params(GUESS)
+    monkeypatch.setattr(th, "_mean_log_mstar_block",
+                        th._mean_log_mstar_torch)
+    twin_loss, twin_grad = own_model.calc_loss_and_grad_from_params(GUESS)
+    assert torch.equal(loss, twin_loss) and torch.equal(grad, twin_grad)
+    assert (hk.history_fwd_cuda.launches,
+            hk.history_bwd_cuda.launches) == before
+
+
+def test_history_kernel_wrappers_without_cuda():
+    # The kernels' module imports and checks its arguments without a card;
+    # only a launch needs one.
+    from multigrad_tpu_torch.ops import hist_kernels as hk
+    from multigrad_tpu_torch.ops import kernel_costs as kc
+    t16 = th.default_time_grid(16, device="cpu")
+    p = torch.tensor(TRUTH, requires_grad=True)
+    assert hk.param_vector(p, "cpu") is p
+    (g,) = torch.autograd.grad(hk.param_vector(list(p.unbind(0)),
+                                               "cpu").sum(), p)
+    assert torch.equal(g, torch.ones(10))
+    # A float64 tensor is cast, and stays differentiable.
+    p64 = torch.tensor(TRUTH, dtype=torch.float64, requires_grad=True)
+    cast = hk.param_vector(p64, "cpu")
+    assert cast.dtype == torch.float32
+    (g,) = torch.autograd.grad(cast.sum(), p64)
+    assert torch.equal(g, torch.ones(10, dtype=torch.float64))
+    plain = hk.param_vector(th.TRUTH, "cpu")
+    assert plain.dtype == torch.float32
+    assert torch.equal(plain, torch.tensor(TRUTH))
+    good = dict(log_mh0=torch.zeros(8), params=p.detach(), t_grid=t16,
+                obs_indices=(7,))
+    for bad, match in ((dict(params=p.detach().double()), "float32"),
+                       (dict(params=p.detach()[:9]), "shape"),
+                       (dict(params=TRUTH), "tensor"),
+                       (dict(t_grid=th.default_time_grid(
+                           hk.MAX_TIMES + 1, device="cpu")), "epochs"),
+                       (dict(obs_indices=(7,) * (hk.MAX_EPOCHS + 1)),
+                        "epochs"),
+                       (dict(obs_indices=(0, 5)), "obs_indices"),
+                       (dict(obs_indices=(16,)), "obs_indices"),
+                       (dict(g=torch.zeros(8, 1)), "cotangent")):
+        with pytest.raises(ValueError, match=match):
+            hk._check_cuda_args(**(good | bad))
+    hk._check_cuda_args(**good, g=torch.zeros(1, 8))
+    hk._check_cuda_args(**(good | dict(t_grid=th.default_time_grid(
+        hk.MAX_TIMES, device="cpu"))))
+    # The halo masses and the time grid get no gradient from the kernels:
+    # a backward that needs one raises before it reads anything.
+    for needs in ((True, True, False, False), (False, True, True, False)):
+        with pytest.raises(RuntimeError, match="parameters only"):
+            hk.HistoryBlock.backward(SimpleNamespace(needs_input_grad=needs),
+                                     torch.zeros(1, 8))
+    # One thread a halo, at most 16 blocks an SM.
+    assert hk.history_grid(1_000, 132) == 4
+    assert hk.history_grid(1_000_000, 132) == 132 * 16
+    assert kc.hist_fwd_ops(10, 16, 3) == 10 * (17 * 16 + 7 * 15 + 3 * 3 + 1)
+    assert kc.hist_bwd_ops(10, 16, 3) - kc.hist_fwd_ops(10, 16, 3) \
+        == 10 * 46 * 16
