@@ -16,7 +16,14 @@ traffic mix or per-layer metric is a new file and never an edit:
   configuration and the seed (``build``);
 - ``reference/<model>.py``: the plain reference (``Reference``);
 - ``costs/<model>.py``: the operation and byte counts (``Costs``);
-- ``metrics/<metric>.py``: one reader a per-layer metric (``read``).
+- ``metrics/<metric>.py``: one reader a per-layer metric (``read``);
+- ``rehearsal/<model>.py``: the model's rehearsal on the CPU, for the
+  tests: ``SIZES`` (configuration keys set anew, small enough for the
+  CPU) and ``half()`` (the fault that leaves out half of the catalog);
+- ``rehearsal/<driver>.py``: the driver's rehearsal: ``CUT`` (traffic
+  keys set anew, so that a rehearsal takes a few seconds on the CPU).
+  Models and drivers share this folder, so no model takes a driver's
+  name.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 While a profiler runs, each span of ``multigrad_tpu_torch`` opens a
 ``record_function`` range named ``mgt.<name>``
-(``multigrad_tpu_torch/telemetry/spans.py``).  :func:`table` reads those
-ranges out of the window's profiler, on the trace's own clock, into
+(``multigrad_tpu_torch/telemetry/spans.py``).  :func:`table_of` reads
+those ranges out of the window's profiler events (:func:`events`), on the
+trace's own clock, into
 ``{path: {"count", "host_s", "host_work_s", "device_s"}}``.  A range's
 ``path`` is its name after those of the ranges that hold it
 (``"mgt.adam.step/mgt.hist.cumsum"``); over the instances of a path:
@@ -33,11 +34,10 @@ range that holds its start on its own thread, else on any other thread
 range is open on the thread that called it).  A window without ranges
 (a program that opens none) gives an empty table.
 
-The window of a traced run (:class:`perfbench.core.trace.Window`) does
-not keep this table: a metric of the spans needs ``Window.close`` to
-store ``table(self._prof)`` as ``summary["spans"]`` before it drops the
-profiler.  :func:`host_work_ms` and :func:`device_ms_per` read it from
-there.
+The window of a traced run (:class:`perfbench.core.trace.Window`) keeps
+this table as ``summary["spans"]``, read from the same list of events as
+the rest of its summary; :func:`host_work_ms` and :func:`device_ms_per`
+read it from there.
 """
 from __future__ import annotations
 
@@ -67,7 +67,9 @@ class Event(NamedTuple):
 
 
 def events(prof) -> list:
-    """Every event of the profiler ``prof`` as an :class:`Event`."""
+    """Every event of the profiler ``prof`` as an :class:`Event`, read from
+    its raw results (building its event objects would take longer than
+    many a window)."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
     out = []
@@ -78,11 +80,6 @@ def events(prof) -> list:
                          e.correlation_id(), e.linked_correlation_id(),
                          e.sequence_nr(), e.fwd_thread_id()))
     return out
-
-
-def table(prof) -> dict:
-    """The span table of the profiler ``prof`` (see the module)."""
-    return table_of(events(prof))
 
 
 class _Cover:

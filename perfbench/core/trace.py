@@ -17,13 +17,21 @@ From the profiler's events the window gives:
 - ``idle_gaps``: idle device time inside the bracket, summed by what the
   host was doing (the innermost host operation covering the middle of
   each gap of at least :data:`GAP_US` microseconds; shorter gaps are
-  summed under one name).
+  summed under one name);
+- ``spans``: the program's span table (:func:`perfbench.core.spans
+  .table_of`) of the events that start inside the bracket.
+
+The profiler's events are read once, into :class:`perfbench.core.spans
+.Event` tuples, whose first four fields are what :func:`summarize`
+reads.
 """
 from __future__ import annotations
 
 import bisect
 import time
 from collections import defaultdict
+
+from perfbench.core import spans
 
 #: Spin kernels at the start of every window on the card.
 LEAD_IN = 256
@@ -84,20 +92,13 @@ class Window:
         self._range.__exit__(None, None, None)
         self._prof.__exit__(None, None, None)
         self.closed = True
-        self.summary = summarize(_events(self._prof))
+        evs = spans.events(self._prof)
+        self.summary = summarize(evs)
         self.summary["wall_s"] = self.wall_s
+        w0, w1 = bracket(evs)
+        self.summary["spans"] = spans.table_of(
+            [e for e in evs if w0 <= e.start < w1])
         del self._prof, self._range
-
-
-def _events(prof):
-    """``(name, on_device, start_ns, end_ns)`` of every profiler event, read
-    from the profiler's raw results (building its event objects would take
-    longer than many a window)."""
-    import torch
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name(), e.device_type() == cuda, e.start_ns(),
-             e.start_ns() + e.duration_ns())
-            for e in prof.profiler.kineto_results.events()]
 
 
 def _union(intervals):
@@ -116,18 +117,24 @@ def short_name(name: str) -> str:
     return (name.split("(")[0] if "<" in name else name)[:160]
 
 
-def summarize(events) -> dict:
-    """Read the window out of ``events`` (see the module docstring)."""
-    bracket = [e for e in events if not e[1] and e[0] == WINDOW]
-    if not bracket:
+def bracket(events):
+    """The start and end (ns) of the last :data:`WINDOW` range."""
+    ranges = [e for e in events if not e[1] and e[0] == WINDOW]
+    if not ranges:
         raise RuntimeError(f"the profiler kept no {WINDOW!r} range")
-    w0, w1 = bracket[-1][2], bracket[-1][3]
+    return ranges[-1][2], ranges[-1][3]
+
+
+def summarize(events) -> dict:
+    """Read the window out of ``events``, each ``(name, on_device,
+    start_ns, end_ns, ...)`` (see the module docstring)."""
+    w0, w1 = bracket(events)
     # A host range shows on the device too, as an annotation spanning the
     # kernels it launched: not device work of its own.
     annotations = {e[0] for e in events if not e[1]}
     kernels = defaultdict(lambda: [0.0, 0])
-    spans, lead = [], 0
-    for name, on_device, start, end in events:
+    ops, lead = [], 0
+    for name, on_device, start, end, *_ in events:
         if not on_device:
             continue
         if SPIN_KERNEL in name:
@@ -136,12 +143,12 @@ def summarize(events) -> dict:
         if name in annotations or start < w0 or start >= w1:
             continue
         end = min(end, w1)
-        spans.append((start, end))
+        ops.append((start, end))
         kernels[name][0] += (end - start) * 1e-9
         kernels[name][1] += 1
-    busy = _union(spans)
+    busy = _union(ops)
     busy_s = sum(e - s for s, e in busy) * 1e-9
-    host = sorted((s, e, n) for n, d, s, e in events
+    host = sorted((s, e, n) for n, d, s, e, *_ in events
                   if not d and n != WINDOW and s < w1 and e > w0)
     starts = [h[0] for h in host]
     gaps = defaultdict(float)

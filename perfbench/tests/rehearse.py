@@ -6,7 +6,9 @@ plain paths, for the tests of this folder.
 :func:`perfbench.core.harness.run` (the whole run but the look for a
 card), then prints the result line, and last a line with the top-level
 names of the modules loaded that may not be.  A ``fault`` (or ``none``)
-breaks the program's timed path underneath first (see :data:`FAULTS`).
+breaks the program's timed path underneath first (see :data:`FAULTS`, and
+``half`` in the model's rehearsal file).  The CPU sizes and the traffic's
+cut are the model's and the driver's files under ``perfbench/rehearsal/``.
 With ``--card`` the run is on the CUDA card at the cell's own sizes, with
 a window of ``SECONDS``: a fault's reading at the cell's size.
 """
@@ -19,17 +21,6 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-#: Sizes small enough for the CPU, by model.
-CONFIG = {
-    "smf": {"num_halos": 20_000},
-    "hist": {"num_halos": 20_000, "chunk_size": 5_000},
-}
-#: Traffic cut to a few seconds on the CPU, by driver.
-TRAFFIC = {
-    "adam": {"nsteps": 12, "warmup_steps": 1},
-    "serve_closed": {"tenants": 8, "buckets": [1, 4], "warmup_buckets": [4],
-                     "nsteps": 10, "batch_window_s": 0.0},
-}
 SECONDS = 1.0
 
 
@@ -52,34 +43,6 @@ def _altered():
         u, mu, nu, upd = real(*args)
         return u + 1e-3, mu, nu, upd
     adam.adam_update = update
-
-
-def _half():
-    """The sumstats over the first half of the halos, the mean taken over
-    them (over half the volume)."""
-    from multigrad_tpu_torch.models import galhalo_hist, smf
-
-    def half_aux(aux, key):
-        n = aux[key].shape[0] // 2
-        return dict(aux, **{key: aux[key][:n], "volume": aux["volume"] / 2})
-
-    real_smf = smf.SMFModel.calc_partial_sumstats_from_params
-
-    def smf_half(self, params, randkey=None):
-        full = self.aux_data
-        self.aux_data = half_aux(full, "log_halo_masses")
-        try:
-            return real_smf(self, params, randkey)
-        finally:
-            self.aux_data = full
-
-    def hist_half(self, params, randkey=None):
-        aux = half_aux(self.aux_data, "log_halo_masses")
-        return galhalo_hist._multi_epoch_smf(aux["log_halo_masses"], params,
-                                             aux)
-    smf.SMFModel.calc_partial_sumstats_from_params = smf_half
-    galhalo_hist.GalhaloHistModel.calc_partial_sumstats_from_params = \
-        hist_half
 
 
 def _wrap_loop(wrap):
@@ -119,8 +82,20 @@ def _moved():
     _wrap_loop(wrap)
 
 
-FAULTS = {"unchanged": _unchanged, "altered": _altered, "half": _half,
-          "swapped": _swapped, "moved": _moved}
+#: The faults that break any model; ``half`` is each model's own
+#: (``perfbench/rehearsal/<model>.py``).
+FAULTS = {"unchanged": _unchanged, "altered": _altered, "swapped": _swapped,
+          "moved": _moved}
+
+
+def rehearsal(bench, cell: str):
+    """The rehearsal file of ``cell``'s model, and its driver's cut
+    (``perfbench/rehearsal/``)."""
+    c = bench.cell(cell)
+    model = bench.config(c.config)["model"]
+    driver = bench.traffic(c.traffic)["driver"]
+    return (bench.module("rehearsal", model),
+            bench.module("rehearsal", driver).CUT)
 
 
 def rehearse(root: str, cell: str, seed: int, trace: bool,
@@ -129,18 +104,14 @@ def rehearse(root: str, cell: str, seed: int, trace: bool,
     from perfbench.core import harness
     from perfbench.core.registry import Benchmark
     harness.cache_dirs(root)
+    model, cut = rehearsal(Benchmark(root), cell)
     if fault:
-        FAULTS[fault]()
+        (model.half if fault == "half" else FAULTS[fault])()
     if card_seconds is not None:
         return harness.run(root, cell, seed, card_seconds, trace,
                            device="cuda")
-    bench = Benchmark(root)
-    c = bench.cell(cell)
-    model = bench.config(c.config)["model"]
-    driver = bench.traffic(c.traffic)["driver"]
     return harness.run(root, cell, seed, SECONDS, trace, device="cpu",
-                       overrides=CONFIG[model],
-                       traffic_overrides=TRAFFIC[driver])
+                       overrides=model.SIZES, traffic_overrides=cut)
 
 
 if __name__ == "__main__":

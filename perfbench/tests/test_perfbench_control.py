@@ -18,7 +18,7 @@ import pytest
 from perfbench.core.compare import judge, sample
 from perfbench.core.registry import Benchmark
 from perfbench.readings import stand_in_fits
-from perfbench.tests.rehearse import CONFIG
+from perfbench.tests.rehearse import rehearsal
 from perfbench.tests.test_perfbench_rehearsal import CELLS, rehearse
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -29,10 +29,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 @pytest.mark.parametrize("kind", ["control", "half"])
 def test_stand_in_is_not_correct(cell, kind):
     bench = Benchmark(REPO)
-    c = bench.cell(cell)
-    model = bench.config(c.config)["model"]
-    fits, reference, traffic = stand_in_fits(bench, c, 2_100_000_003, kind,
-                                             "cpu", CONFIG[model])
+    model, _ = rehearsal(bench, cell)
+    fits, reference, traffic = stand_in_fits(
+        bench, bench.cell(cell), 2_100_000_003, kind, "cpu", model.SIZES)
     correct, checks = judge(fits, reference,
                             float(traffic["learning_rate"]),
                             bench.limits(cell), len(fits), 5)

@@ -143,3 +143,33 @@ def test_limits_are_json_numbers(bench):
                                f"{w['name']}.json")) as f:
             limits = json.load(f)
         assert set(limits) <= {"step_gap", "step_gap_median", "loss_gap"}
+
+
+#: The sizes and cuts that the rehearsals were tuned at, file by file.  A
+#: record to hold the files to: a size retuned on purpose is retuned here
+#: too, and a new model or driver needs no entry.
+REHEARSED = {
+    "smf": ("SIZES", {"num_halos": 20_000}),
+    "hist": ("SIZES", {"num_halos": 20_000, "chunk_size": 5_000}),
+    "adam": ("CUT", {"nsteps": 12, "warmup_steps": 1}),
+    "serve_closed": ("CUT", {"tenants": 8, "buckets": [1, 4],
+                             "warmup_buckets": [4], "nsteps": 10,
+                             "batch_window_s": 0.0}),
+}
+
+
+def test_every_model_and_driver_has_its_rehearsal(bench):
+    for c in bench.spec["configs"]:
+        model = bench.module("rehearsal", bench.config(c["name"])["model"])
+        assert isinstance(model.SIZES, dict) and model.SIZES, c["name"]
+        assert callable(model.half), c["name"]
+    for w in bench.spec["workloads"]:
+        driver = bench.traffic(w["traffic"])["driver"]
+        cut = bench.module("rehearsal", driver).CUT
+        assert isinstance(cut, dict) and cut, driver
+
+
+def test_rehearsals_keep_their_sizes(bench):
+    """The rehearsal files read the sizes the rehearsals were tuned at."""
+    for name, (key, want) in REHEARSED.items():
+        assert getattr(bench.module("rehearsal", name), key) == want, name

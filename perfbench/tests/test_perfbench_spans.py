@@ -1,7 +1,8 @@
 """The span table of a traced window (``core/spans.py``) on synthetic
 event lists: the three rules that attribute a device event to a range,
 the host's blocked time taken out of its work, nesting across threads;
-the three readings of the table; the table of a CPU profile; and the
+the three readings of the table and the metric files that take them;
+the table of a CPU profile, and the one a traced window keeps; and the
 window's summary, unchanged by the program's ranges."""
 from types import SimpleNamespace
 
@@ -9,7 +10,8 @@ import pytest
 
 from perfbench.core import spans
 from perfbench.core.spans import NODE, Event, table_of
-from perfbench.core.trace import WINDOW, _events, summarize
+from perfbench.core.registry import Benchmark
+from perfbench.core.trace import WINDOW, Window, summarize
 
 MAIN, AUTOGRAD, OTHER = 1, 2, 3
 
@@ -234,13 +236,60 @@ def test_table_reads_the_programs_ranges_from_a_cpu_profile():
                 with span(None, "adam.step"):
                     with span(None, "adam.update"):
                         torch.ones(8).sum()
-    table = spans.table(prof)
+    table = table_of(spans.events(prof))
     assert set(table) == {"mgt.adam.step", "mgt.adam.step/mgt.adam.update"}
     assert table["mgt.adam.step"]["count"] == 2
     assert table["mgt.adam.step/mgt.adam.update"]["count"] == 2
     for row in table.values():
         assert 0 < row["host_work_s"] <= row["host_s"]
         assert row["device_s"] == 0
-    assert set(summarize(_events(prof))) == {
+    assert set(summarize(spans.events(prof))) == {
         "window_s", "busy_s", "lead_in_kept", "kernels", "device_ops",
         "idle_gaps"}
+
+
+#: The span metrics' files, and what each reads from ``step_events`` with
+#: its scan range named as the history kernels' range.
+SPAN_METRICS = {"adam.step_host_ms": 10_000e-6, "adam.update_host_ms": 500e-6,
+                "hist.history_ms_per_step": 1_100e-6}
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_METRICS))
+def test_span_metric_files_read_the_table(name):
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    read = Benchmark(root).module("metrics", name).read
+    table = table_of([e._replace(name=e.name.replace("cumsum", "history"))
+                      for e in step_events()])
+    assert read(SimpleNamespace(trace={"spans": table}, on_card=True)) \
+        == pytest.approx(SPAN_METRICS[name])
+    assert read(SimpleNamespace(trace={"spans": table}, on_card=False)) \
+        is None
+    assert read(SimpleNamespace(trace={"spans": {}}, on_card=True)) is None
+
+
+def test_window_keeps_its_span_table_on_the_cpu():
+    """A window closed on the CPU keeps the span table of the ranges
+    inside its bracket, beside the summary's other keys; the ranges of a
+    step run before it opened are not in it."""
+    import torch
+
+    from multigrad_tpu_torch.telemetry.spans import span
+    window = Window("cpu")
+    window.start()
+    with span(None, "adam.step"):
+        torch.ones(8).sum()
+    window.open()
+    for _ in range(3):
+        with span(None, "adam.step"):
+            with span(None, "adam.update"):
+                torch.ones(8).sum()
+    window.close()
+    summary = window.summary
+    assert set(summary) == {"window_s", "busy_s", "lead_in_kept", "kernels",
+                            "device_ops", "idle_gaps", "wall_s", "spans"}
+    assert summary["spans"]["mgt.adam.step"]["count"] == 3
+    assert summary["spans"]["mgt.adam.step/mgt.adam.update"]["count"] == 3
+    assert spans.host_work_ms(SimpleNamespace(trace=summary, on_card=False),
+                              "mgt.adam.step") is None
